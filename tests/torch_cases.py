@@ -1,0 +1,49 @@
+"""Seeded inputs shared by the port's kernel tests (no JAX: the card tests
+import this on machines without it)."""
+
+import numpy as np
+import torch
+
+PLACEBO_KEY = (1 << 30) - 1
+MAX_USER_KEY = PLACEBO_KEY - 1
+PLACEBO_KV = PLACEBO_KEY << 1
+INT32_MAX = np.iinfo(np.int32).max
+
+QUERY_EDGES = [0, 1, MAX_USER_KEY, PLACEBO_KEY, INT32_MAX, -1]
+
+MERGE_CASES = [
+    ([0], 8), ([1], 8), ([5, 0, 3], 8), ([1, 1], 4), ([255, 257], 8),
+    ([17, 255, 0, 257, 1], 40), ([64, 64, 128, 256, 512], 1 << 20),
+    ([3, 9, 27, 81, 243, 5, 7, 11, 13, 17, 19, 23, 29], 30),
+]
+
+
+def sorted_run(rng, n, key_hi, tomb_frac=0.3, placebo_tail=0):
+    """A run as the LSM keeps it: ascending original key, placebos last (with
+    EMPTY_VALUE), mixed status bits within equal keys."""
+    keys = np.sort(rng.integers(0, key_hi, n - placebo_tail))
+    kv = (keys << 1) | (rng.random(keys.size) >= tomb_frac)
+    kv = np.concatenate([kv, np.full(placebo_tail, PLACEBO_KV)]).astype(np.int32)
+    val = rng.integers(-1000, 1 << 20, n).astype(np.int32)
+    val[n - placebo_tail:] = 0
+    return kv, val
+
+
+def runs_np(seed, lengths, key_hi, placebo_frac=0.25):
+    rng = np.random.default_rng(seed)
+    return [sorted_run(rng, n, key_hi, placebo_tail=int(n * placebo_frac)) for n in lengths]
+
+
+def t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def eq(got, exp):
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(exp))
+
+
+def lookup_case(seed, lengths, key_hi, nq):
+    rng = np.random.default_rng(seed)
+    runs = [sorted_run(rng, n, key_hi, placebo_tail=n // 4) for n in lengths]
+    q = np.concatenate([rng.integers(0, key_hi + 3, nq - len(QUERY_EDGES)), QUERY_EDGES]).astype(np.int32)
+    return runs, q
