@@ -15,7 +15,17 @@ Phases, one line each with its seconds:
      every result held exactly against a numpy oracle of last-write-wins,
      and every kernel's launch count moved;
   5. each kernel's time at the main path's shapes beside its bound, its plain
-     version's time and a PyTorch library call's, as one `kernels` JSON line.
+     version's time and a PyTorch library call's, as one `kernels` JSON line
+     (the rows of the batch sort and the pairwise merge are timed after
+     phase 6, on its data);
+  6. the paper-exact update path, bulk build and the sorted-array baseline
+     at full width (phase 4's dictionary freed first): an LSM of capacity
+     2^27 (b = 2^16, L = 12) bulk-built from 2^26 unique keys, then 1024
+     direct `lsm_update_mixed` batches of 2^16 lanes, lookup, count, range,
+     cleanup and size; a sorted array of capacity 2^27 bulk-built from the
+     same keys, then 64 facade update calls (recency rule) and 64 direct
+     batches (paper rule), and the same queries. Every result is held exactly
+     against an oracle built on the card; the update rates are printed.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before it. Without a CUDA device, or without the repository's src/ beside
 it, the script exits non-zero and prints no result.
@@ -96,9 +106,9 @@ def max_err(torch, got, exp) -> int:
 
 
 def check_kernels(torch, device, rng):
-    from repro_torch.kernels import lsm_lookup, merge_path
+    from repro_torch.kernels import bitonic_sort, lsm_lookup, merge_path
 
-    errs = {"merge_cascade": 0, "bound": 0, "fused_lookup": 0}
+    errs = {"merge_cascade": 0, "bound": 0, "fused_lookup": 0, "bitonic_sort": 0, "merge_path": 0}
     cases = 0
     merge_cases = [
         ([1 << 20], 1000, False),
@@ -147,6 +157,42 @@ def check_kernels(torch, device, rng):
     tomb_hits = int(((got[0] >> 1 == q_d) & (got[0] & 1 == 0)).sum())
     require(tomb_hits > 0, "lookup check has no tombstone hits")
     cases += 1
+
+    # Batch sort: few distinct keys, so identical key variables repeat and
+    # the values (the lanes) show that the order is stable.
+    for n in (1, 7, 8, 1000, 1024, 1025, 1 << 16, 1 << 20):
+        kv = dev_tensor(torch, (rng.integers(0, 50, n) << 1 | (rng.random(n) < 0.6)).astype(np.int32), device)
+        val = torch.arange(n, dtype=torch.int32, device=device)
+        for fn, plain in ((bitonic_sort.bitonic_sort_pairs, bitonic_sort.sort_pairs_plain),
+                          (bitonic_sort.block_sort, bitonic_sort.block_sort_plain)):
+            got, exp = fn(kv, val), plain(kv, val)
+            torch.cuda.synchronize()
+            errs["bitonic_sort"] = max(errs["bitonic_sort"], max_err(torch, got, exp))
+            cases += 1
+
+    # Pairwise merge: every pair of edge lengths and one large pair, both
+    # compare modes; then merge rounds with a ragged last pair.
+    lengths = [(na, nb) for na in (0, 1, 255, 256, 257) for nb in (0, 1, 255, 256, 257)]
+    for na, nb in lengths + [(1 << 16, 1 << 20), (1 << 20, 1 << 16)]:
+        for full in (False, True):
+            runs = [sorted_run(rng, m, 300) for m in (na, nb)]
+            if full:
+                runs = [(np.sort(kv), v) for kv, v in runs]
+            args = [dev_tensor(torch, a, device) for run in runs for a in run]
+            got = merge_path.merge_path(*args, compare_full=full)
+            exp = merge_path.merge_path_plain(*args, shift=0 if full else 1)
+            torch.cuda.synchronize()
+            errs["merge_path"] = max(errs["merge_path"], max_err(torch, got, exp))
+            cases += 1
+    for n, width in ((5000, 1024), ((1 << 20) + 3000, 1 << 18)):
+        kv = dev_tensor(torch, rng.permutation(sorted_run(rng, n, 1 << 12)[0]), device)
+        kv = torch.cat([torch.sort(kv[s:s + width]).values for s in range(0, n, width)])  # sorted runs
+        val = torch.arange(n, dtype=torch.int32, device=device)
+        got = merge_path.merge_round(kv, val, width, compare_full=True)
+        exp = merge_path.merge_round_plain(kv, val, width, shift=0)
+        torch.cuda.synchronize()
+        errs["merge_path"] = max(errs["merge_path"], max_err(torch, got, exp))
+        cases += 1
     return errs, cases
 
 
@@ -343,6 +389,20 @@ def search_footprint(torch, kv, q, active):
     return lo, seen, int(probes)
 
 
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def checker(torch, errs):
+    def check(name, kernel_fn, plain_fn):
+        errs[name] = max(errs[name], max_err(torch, kernel_fn(), plain_fn()))
+        require(errs[name] == 0, f"{name} differs from its plain version at the main path's shape")
+    return check
+
+
 def kernel_rows(torch, d, q_lookup, k1, errs, launches):
     """Per kernel, at the main path's shapes and on its final state: hold the
     kernel against its plain version once more (exact), then time the kernel,
@@ -354,17 +414,13 @@ def kernel_rows(torch, d, q_lookup, k1, errs, launches):
     lens = [kv.shape[0] for kv in kvs]
     total = sum(lens)
     rows = []
-
-    def check(name, kernel_fn, plain_fn):
-        errs[name] = max(errs[name], max_err(torch, kernel_fn(), plain_fn()))
-        require(errs[name] == 0, f"{name} differs from its plain version at the main path's shape")
+    check = checker(torch, errs)
 
     def row(name, source, replaces, ms, plain_ms, library_ms, nbytes, ops):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+        bound_ms, bound_by = bound(nbytes, ops)
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=launches[name], max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
-                         bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-                         library_ms=library_ms))
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
 
     # Merge: every run of the structure, as size() merges them.
     check("merge_cascade", lambda: merge_path.merge_cascade_path(kvs, vals),
@@ -426,24 +482,369 @@ def kernel_rows(torch, d, q_lookup, k1, errs, launches):
     return rows
 
 
-def profile_insert(torch, d, keys, vals):
-    """One more insert call under torch.profiler: wall time, device busy
-    time (the sum of kernel times on the one stream) and the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(torch, what, fn):
+    """`fn()` under torch.profiler: wall time, device busy time (the sum of
+    kernel times on the one stream) and the top kernels. Returns fn's result."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        d = d.insert(keys, vals)
+        res = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    log(f"phase 5 profile: insert of {keys.shape[0]} lanes, wall {wall_us / 1e3:.2f} ms, device busy "
+    log(f"phase 5 profile: {what}, wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms, idle share {1 - busy_us / wall_us:.3f}; top kernels: "
         + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in top))
-    return d
+    return res
+
+
+def profile_direct(torch, device, lsm_d, sa_d, b, count, seed):
+    """`count` more direct batches of b random lanes on each structure of
+    phase 6 (after its checks), under the profiler."""
+    from repro_torch.core import lsm, sorted_array
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 2)
+    keys = torch.randint(0, MAX_USER_KEY + 1, (count, b), generator=gen, device=device, dtype=torch.int32)
+    dels = torch.rand((count, b), generator=gen, device=device) < 0.2
+    kv = (keys << 1) | (~dels).to(torch.int32)
+    st = lsm_d.state
+    cfg = lsm.LSMConfig(b, st.num_levels)
+
+    def lsm_batches():
+        for i in range(count):
+            lsm.lsm_update_mixed(cfg, st, keys[i], keys[i], dels[i])
+
+    sa_cfg = sorted_array.SAConfig(sa_d.capacity)
+
+    def sa_batches():
+        for i in range(count):
+            sorted_array.sa_update_batch(sa_cfg, sa_d.state, kv[i], keys[i])
+
+    profile(torch, f"{count} direct LSM batches of {b} lanes", lsm_batches)
+    profile(torch, f"{count} direct sorted-array batches of {b} lanes", sa_batches)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the paper-exact update path, bulk build and the sorted array
+# ---------------------------------------------------------------------------
+
+
+def oracle_live(torch, keys, prio, status, vals, prio_bits):
+    """The dictionary after a set of writes: per key, the write of the
+    smallest priority wins, and the key is live if that write is an insert.
+    Returns (live keys ascending, their values as int64)."""
+    comp, order = torch.sort((keys.long() << prio_bits) | prio)
+    k = comp >> prio_bits
+    first = torch.ones_like(k, dtype=torch.bool)
+    first[1:] = k[1:] != k[:-1]
+    win = order[first]
+    live = status[win] == 1
+    return k[first][live], vals[win][live].long()
+
+
+def query_checks(torch, live, live_vals, q, k1, k2, max_results):
+    """Checkers of lookup, count and range results against a live set."""
+    idx = torch.searchsorted(live, q).clamp(max=live.numel() - 1)
+    exp_found = live[idx] == q
+    exp_lookup = torch.where(exp_found, live_vals[idx], 0)
+    lo = torch.searchsorted(live, k1)
+    exp_counts = torch.searchsorted(live, k2, right=True) - lo
+    require(int(exp_counts.max()) <= max_results, "a window holds more than max_results live keys")
+    col = torch.arange(max_results, device=q.device)
+    inside = col[None, :] < exp_counts[:, None]
+    src = (lo[:, None] + col[None, :]).clamp(max=live.numel() - 1)
+    exp_keys = torch.where(inside, live[src], PLACEBO_KEY)
+    exp_vals = torch.where(inside, live_vals[src], 0)
+
+    def lookup(res, what):
+        found, got = res
+        require(torch.equal(found, exp_found), f"{what}: lookup found differs")
+        require(torch.equal(got.long(), exp_lookup), f"{what}: lookup values differ")
+
+    def count(res, what):
+        counts, ok = res
+        require(bool(ok.all()), f"{what}: count plan truncated")
+        require(torch.equal(counts.long(), exp_counts), f"{what}: count differs")
+
+    def range_(res, what):
+        rkeys, rvals, rcounts, rok = res
+        require(bool(rok.all()), f"{what}: range plan truncated")
+        require(torch.equal(rcounts.long(), exp_counts), f"{what}: range counts differ")
+        require(torch.equal(rkeys, exp_keys), f"{what}: range keys differ")
+        require(torch.equal(rvals.long(), exp_vals), f"{what}: range values differ")
+    return lookup, count, range_
+
+
+def paper_rule_prio(torch, dels):
+    """Write priorities (smaller wins) of the lanes of [count, b] direct
+    batches under the paper's rule: a later batch first; within a batch a
+    tombstone first, then inserts in lane order (the stable sort by the full
+    key variable). Returns (flat priorities, flat status bits, bits used)."""
+    count, b = dels.shape
+    lane_bits = (b - 1).bit_length()
+    batch = torch.arange(count, device=dels.device)[:, None]
+    lane = torch.arange(b, device=dels.device)[None, :]
+    status = (~dels).long()
+    prio = ((count - 1 - batch) << (lane_bits + 1)) | (status << lane_bits) | lane
+    return prio.reshape(-1), status.reshape(-1), (count - 1).bit_length() + 1 + lane_bits
+
+
+def recency_prio(torch, dels):
+    """The same under the write buffer's rule (facade calls): a later call
+    first, and within a call the later lane, whatever its status."""
+    count, b = dels.shape
+    lane_bits = (b - 1).bit_length()
+    call = torch.arange(count, device=dels.device)[:, None]
+    lane = torch.arange(b, device=dels.device)[None, :]
+    prio = ((count - 1 - call) << lane_bits) | (b - 1 - lane)
+    return prio.reshape(-1), (~dels).long().reshape(-1), (count - 1).bit_length() + lane_bits
+
+
+def drive_slice(torch, device, seed, *, log2_bulk, b, capacity, lsm_batches, sa_calls, sa_batches,
+                n_lookups, n_windows):
+    """Bulk build, direct paper-rule updates and queries on the LSM, then the
+    same on the sorted array with facade (recency-rule) calls as well; every
+    answer held against an oracle built on the device from `seed`. Returns
+    (rates dict, bulk keys, bulk values, LSM handle, sorted-array handle),
+    the handles after their final cleanup."""
+    from repro_torch.api import Dictionary, QueryPlan
+    from repro_torch.core import lsm, sorted_array
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 1)
+
+    def randint(hi, size):
+        return torch.randint(0, hi, (size,), generator=gen, device=device, dtype=torch.int32)
+
+    t0 = time.perf_counter()
+    n = 1 << log2_bulk
+    cand = torch.unique(randint(MAX_USER_KEY + 1, n + n // 8))
+    require(cand.numel() >= n, "too few unique candidate keys")
+    bulk_keys = cand[torch.randperm(cand.numel(), generator=gen, device=device)[:n]]
+    bulk_vals = randint(1 << 30, n)
+    bulk_status = torch.ones(n, dtype=torch.long, device=device)
+    del cand
+
+    def batches(count, first_value):
+        """`count` batches of b lanes, flat: new keys, re-writes and deletes
+        of bulk keys, and in-batch duplicates of an earlier lane's key (half
+        of them deletes). Values are distinct and positive."""
+        total = count * b
+        kind = torch.rand(total, generator=gen, device=device)
+        keys = torch.where(kind < 0.3, randint(MAX_USER_KEY + 1, total), bulk_keys[randint(n, total).long()])
+        dels = (kind >= 0.6) & (kind < 0.75)
+        back = 1 + randint(16, total).long()
+        lanes = torch.arange(total, device=device)
+        dup = (kind >= 0.75) & (lanes % b >= back)
+        src = torch.where(dup, lanes - back, lanes)
+        keys = keys[src]
+        dels = torch.where(dup, torch.rand(total, generator=gen, device=device) < 0.5, dels)
+        vals = first_value + lanes.to(torch.int32)
+        return keys.view(count, b), vals.view(count, b), dels.view(count, b), int(dup.sum())
+
+    rates = {}
+    plan = QueryPlan(max_candidates=1024, max_results=512)
+    k1 = randint(MAX_USER_KEY - 1022, n_windows)
+    k2 = k1 + 1023
+
+    def queries(d, live, live_vals, what):
+        q = torch.cat([live[randint(live.numel(), n_lookups // 2).long()],
+                       randint(MAX_USER_KEY + 1, n_lookups - n_lookups // 2)])
+        lookup, count, range_ = query_checks(torch, live, live_vals, q, k1, k2, plan.max_results)
+        for name, call, check in (("lookup", lambda: d.lookup(q), lookup),
+                                  ("count", lambda: d.count(k1, k2, plan), count),
+                                  ("range", lambda: d.range(k1, k2, plan), range_)):
+            sync()
+            t1 = time.perf_counter()
+            res = call()
+            sync()
+            check(res, f"{what} {name}")
+            log(f"phase 6 {what} {name}: {time.perf_counter() - t1:.4f} s, equal to the oracle")
+        t1 = time.perf_counter()
+        d = d.cleanup()
+        sync()
+        log(f"phase 6 {what} cleanup: {time.perf_counter() - t1:.4f} s")
+        lookup(d.lookup(q), f"{what} lookup after cleanup")
+        size = int(d.size())
+        require(size == live.numel(), f"{what}: size {size} != oracle {live.numel()}")
+        require(not d.overflowed(), f"{what}: overflow latched")
+        log(f"phase 6 {what} size: {size} live; every result equals the oracle")
+        return d
+
+    # --- LSM: bulk build, then direct updates under the paper's in-batch rule.
+    keys, vals, dels, n_dup = batches(lsm_batches, 1)
+    prio, status, bits = paper_rule_prio(torch, dels)  # the bulk build is older than every batch
+    live, live_vals = oracle_live(
+        torch, torch.cat([keys.reshape(-1), bulk_keys]), torch.cat([prio, torch.full((n,), 1 << bits, device=device)]),
+        torch.cat([status, bulk_status]), torch.cat([vals.reshape(-1), bulk_vals]), bits + 1)
+    sync()
+    log(f"phase 6 set-up: {n} bulk keys, {lsm_batches} batches of {b} lanes ({n_dup} in-batch duplicates), "
+        f"oracle of {live.numel()} live keys, {time.perf_counter() - t0:.2f} s")
+
+    d = Dictionary.create("lsm", batch_size=b, capacity=capacity, device=device)
+    st = d.state
+    cfg = lsm.LSMConfig(b, st.num_levels)
+    require(cfg.num_levels == (capacity // b).bit_length() and st.arena_kv.numel() == b << cfg.num_levels,
+            "unexpected LSM shape")
+    sync()
+    t1 = time.perf_counter()
+    d = d.bulk_build(bulk_keys, bulk_vals)
+    sync()
+    rates["lsm_bulk_build_M_elem_per_s"] = n / (time.perf_counter() - t1) / 1e6
+    st = d.state
+    require(st.r == n // b, f"bulk build left r = {st.r}")
+    t1 = time.perf_counter()
+    for i in range(lsm_batches):
+        lsm.lsm_update_mixed(cfg, st, keys[i], vals[i], dels[i])
+    sync()
+    dt = time.perf_counter() - t1
+    rates["lsm_update_M_elem_per_s"] = lsm_batches * b / dt / 1e6
+    require(st.r == n // b + lsm_batches and not st.overflowed, f"after the updates r = {st.r}")
+    log(f"phase 6 lsm: bulk build {rates['lsm_bulk_build_M_elem_per_s']:.3f} M elem/s; {lsm_batches} direct "
+        f"batches {dt:.3f} s, {rates['lsm_update_M_elem_per_s']:.3f} M elem/s; L = {cfg.num_levels}, r = {st.r}")
+    del keys, vals, dels, st
+    lsm_d = queries(d, live, live_vals, "lsm")
+    del d, live, live_vals
+
+    # --- Sorted array: bulk build, facade calls (the later lane and call
+    # win), then direct batches (the paper's rule), which are newest.
+    t0 = time.perf_counter()
+    f_keys, f_vals, f_dels, f_dup = batches(sa_calls, 1 << 28)
+    kind = torch.arange(sa_calls, device=device) % 3  # insert, delete, mixed update
+    f_dels = torch.where((kind == 1)[:, None], True, torch.where((kind == 0)[:, None], False, f_dels))
+    e_keys, e_vals, e_dels, e_dup = batches(sa_batches, 1 << 29)
+    # Newest first: the direct batches, then the facade calls, then the bulk build.
+    e_prio, e_status, e_bits = paper_rule_prio(torch, e_dels)
+    f_prio, f_status, f_bits = recency_prio(torch, f_dels)
+    top = (1 << e_bits) + (1 << f_bits)
+    live, live_vals = oracle_live(
+        torch, torch.cat([e_keys.reshape(-1), f_keys.reshape(-1), bulk_keys]),
+        torch.cat([e_prio, (1 << e_bits) + f_prio, torch.full((n,), top, device=device)]),
+        torch.cat([e_status, f_status, bulk_status]),
+        torch.cat([e_vals.reshape(-1), f_vals.reshape(-1), bulk_vals]), top.bit_length())
+    sync()
+    log(f"phase 6 sa set-up: {sa_calls} facade calls and {sa_batches} direct batches of {b} lanes "
+        f"({f_dup + e_dup} in-batch duplicates), oracle of {live.numel()} live keys, "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    d = Dictionary.create("sorted_array", capacity=capacity, batch_size=b, device=device)
+    cfg = sorted_array.SAConfig(capacity)
+    sync()
+    t1 = time.perf_counter()
+    d = d.bulk_build(bulk_keys, bulk_vals)
+    sync()
+    rates["sa_bulk_build_M_elem_per_s"] = n / (time.perf_counter() - t1) / 1e6
+    t1 = time.perf_counter()
+    for c in range(sa_calls):
+        if c % 3 == 0:
+            d = d.insert(f_keys[c], f_vals[c])
+        elif c % 3 == 1:
+            d = d.delete(f_keys[c])
+        else:
+            d = d.update(f_keys[c], f_vals[c], is_delete=f_dels[c])
+    sync()
+    rates["sa_facade_M_elem_per_s"] = sa_calls * b / (time.perf_counter() - t1) / 1e6
+    e_kv = (e_keys << 1) | (~e_dels).to(torch.int32)
+    e_vals = torch.where(e_dels, 0, e_vals)
+    st = d.state
+    t1 = time.perf_counter()
+    for e in range(sa_batches):
+        sorted_array.sa_update_batch(cfg, st, e_kv[e], e_vals[e])
+    sync()
+    dt = time.perf_counter() - t1
+    rates["sa_update_M_elem_per_s"] = sa_batches * b / dt / 1e6
+    require(int(st.n) == n + (sa_calls + sa_batches) * b, f"sa n = {int(st.n)}")
+    log(f"phase 6 sa: bulk build {rates['sa_bulk_build_M_elem_per_s']:.3f} M elem/s; {sa_calls} facade calls "
+        f"{rates['sa_facade_M_elem_per_s']:.3f} M elem/s; {sa_batches} direct batches {dt:.3f} s, "
+        f"{rates['sa_update_M_elem_per_s']:.3f} M elem/s")
+    del st
+    return rates, bulk_keys, bulk_vals, lsm_d, queries(d, live, live_vals, "sa")
+
+
+def slice_kernel_rows(torch, device, bulk_keys, bulk_vals, b, capacity, errs, launches):
+    """The rows of the batch sort and the pairwise merge, on phase 6's data:
+    each kernel held once more against its plain version at these shapes,
+    then timed beside its plain version and a stable `torch.sort`."""
+    from repro_torch.kernels import bitonic_sort, merge_path
+
+    check = checker(torch, errs)
+    kv, val = (bulk_keys << 1) | 1, bulk_vals
+    n = kv.shape[0]
+
+    def sort_lib(x, v):
+        s, order = torch.sort(x, stable=True)
+        return s, v[order]
+
+    def rounds(m):
+        return max(0, (m - 1).bit_length() - (bitonic_sort.TILE - 1).bit_length())
+
+    # Block sort at 2^26: the library call is a stable row sort of the tiles.
+    check("bitonic_sort", lambda: bitonic_sort.block_sort(kv, val), lambda: bitonic_sort.block_sort_plain(kv, val))
+    tiles = kv.view(-1, bitonic_sort.TILE)
+    ms = time_ms(torch, lambda: bitonic_sort.block_sort(kv, val))
+    plain = time_ms(torch, lambda: bitonic_sort.block_sort_plain(kv, val))
+    lib = time_ms(torch, lambda: torch.take_along_dim(val.view(-1, bitonic_sort.TILE),
+                                                      torch.sort(tiles, dim=1, stable=True).indices, dim=1))
+    bound_ms, bound_by = bound(16 * n, 0)
+    whole = []
+    for m in (b, n):
+        x, v = kv[:m].contiguous(), val[:m].contiguous()
+        check("bitonic_sort", lambda: bitonic_sort.bitonic_sort_pairs(x, v), lambda: bitonic_sort.sort_pairs_plain(x, v))
+        whole.append(dict(what=f"sort_pairs whole, n = {m}, block sort + {rounds(m)} merge rounds",
+                          ms=time_ms(torch, lambda: bitonic_sort.bitonic_sort_pairs(x, v)),
+                          plain_ms=time_ms(torch, lambda: bitonic_sort.sort_pairs_plain(x, v)),
+                          bound_ms=bound(16 * m * (1 + rounds(m)), 0)[0],
+                          library_ms=time_ms(torch, lambda: sort_lib(x, v))))
+    rows = [dict(name="bitonic_sort", route="cuda", source="src/repro_torch/csrc/bitonic_sort.cu",
+                 replaces="src/repro/kernels/bitonic_sort.py:74", launches=launches["bitonic_sort"],
+                 max_abs_err=errs["bitonic_sort"], ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=lib, also=whole)]
+
+    # Merge: the last round of the 2^26 sort (two sorted halves), and one SA
+    # merge of a sorted 2^16 batch into a 2^27-slot array; the library call
+    # is a stable sort of the concatenation on the same comparison key.
+    half = n // 2
+    rkv = torch.cat([torch.sort(kv[:half]).values, torch.sort(kv[half:]).values])
+    check("merge_path", lambda: merge_path.merge_round(rkv, val, half, compare_full=True),
+          lambda: merge_path.merge_round_plain(rkv, val, half, shift=0))
+    ms = time_ms(torch, lambda: merge_path.merge_round(rkv, val, half, compare_full=True))
+    plain = time_ms(torch, lambda: merge_path.merge_round_plain(rkv, val, half, shift=0))
+    lib = time_ms(torch, lambda: sort_lib(rkv, val))
+    bound_ms, bound_by = bound(16 * n, 0)
+    del rkv
+    a_kv, a_val = bitonic_sort.sort_pairs_plain(kv[:b], val[:b])
+    arr_kv, arr_val = torch.full((capacity,), PLACEBO_KV, dtype=torch.int32, device=device), torch.zeros(
+        capacity, dtype=torch.int32, device=device)
+    arr_kv[:n], arr_val[:n] = bitonic_sort.sort_pairs_plain(kv, val)
+    out = (torch.empty(capacity + b, dtype=torch.int32, device=device),
+           torch.empty(capacity + b, dtype=torch.int32, device=device))
+    check("merge_path", lambda: merge_path.merge_path(a_kv, a_val, arr_kv, arr_val, out=out),
+          lambda: merge_path.merge_path_plain(a_kv, a_val, arr_kv, arr_val))
+    cat_kv, cat_val = torch.cat([a_kv, arr_kv]), torch.cat([a_val, arr_val])
+    sa = dict(what=f"SA merge of {b} into {capacity} slots (shift 1)",
+              ms=time_ms(torch, lambda: merge_path.merge_path(a_kv, a_val, arr_kv, arr_val, out=out)),
+              plain_ms=time_ms(torch, lambda: merge_path.merge_path_plain(a_kv, a_val, arr_kv, arr_val)),
+              bound_ms=bound(16 * (capacity + b), 0)[0],
+              library_ms=time_ms(torch, lambda: sort_lib(cat_kv >> 1, cat_val)))
+    rows.append(dict(name="merge_path", route="cuda", source="src/repro_torch/csrc/merge_path.cu",
+                     replaces="src/repro/kernels/merge_path.py:117", launches=launches["merge_path"],
+                     max_abs_err=errs["merge_path"], ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=lib, also=[sa]))
+    for r in rows:
+        log(f"phase 5 {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.4f}, "
+            f"torch {r['library_ms']:.4f}); " + "; ".join(
+                f"{a['what']}: {a['ms']:.4f} ms (bound {a['bound_ms']:.4f}, plain {a['plain_ms']:.4f}, "
+                f"torch.sort {a['library_ms']:.4f})" for a in r["also"]))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -463,7 +864,7 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import _build, lsm_lookup, merge_path
+    from repro_torch.kernels import _build, bitonic_sort, lsm_lookup, merge_path
 
     t_all = time.perf_counter()
     device = torch.device("cuda")
@@ -473,8 +874,9 @@ def main() -> int:
     log(smi)
     log(f"phase 1 device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    kernels = {"merge_cascade": merge_path.KERNEL, "bound": lsm_lookup.BOUND_KERNEL,
-               "fused_lookup": lsm_lookup.LOOKUP_KERNEL}
+    kernels = {"merge_cascade": merge_path.CASCADE_KERNEL, "bound": lsm_lookup.BOUND_KERNEL,
+               "fused_lookup": lsm_lookup.LOOKUP_KERNEL, "bitonic_sort": bitonic_sort.KERNEL,
+               "merge_path": merge_path.PATH_KERNEL}
     t0 = time.perf_counter()
     _build.build_all(list(kernels.values()))
     log(f"phase 2 build: {len(kernels)} kernels, {time.perf_counter() - t0:.2f} s")
@@ -488,25 +890,58 @@ def main() -> int:
     require(all(e == 0 for e in errs.values()), f"kernel differs from its plain version: {errs}")
     log(f"phase 3 kernels vs plain: {cases} cases, exact (max_abs_err {errs}), {time.perf_counter() - t0:.2f} s")
 
-    for k in kernels.values():
-        k.launches = 0
-    t0 = time.perf_counter()
-    d, rates, q_lookup = drive_main_path(
-        torch, device, args.seed, log2_n=27, b=1 << 16, lanes=1 << 20, n_lookups=1 << 20, n_windows=1 << 14, reps=5)
-    launches = {name: k.launches for name, k in kernels.items()}
-    require(all(v > 0 for v in launches.values()), f"a kernel did not run on the main path: {launches}")
-    log(f"phase 4 main path: {time.perf_counter() - t0:.2f} s, launches {launches}")
+    def drive(phase, fn):
+        """Run one path with every launch count set to 0 just before it;
+        return its result and the counts read just after."""
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        counts = {name: k.launches for name, k in kernels.items()}
+        log(f"phase {phase} main path: {time.perf_counter() - t0:.2f} s, launches {counts}")
+        return res, counts
+
+    (d, rates, q_lookup), launches4 = drive(4, lambda: drive_main_path(
+        torch, device, args.seed, log2_n=27, b=1 << 16, lanes=1 << 20, n_lookups=1 << 20, n_windows=1 << 14, reps=5))
+    staged_path = ("merge_cascade", "bound", "fused_lookup")
+    require(all(launches4[k] > 0 for k in staged_path), f"a kernel did not run on phase 4's path: {launches4}")
 
     t0 = time.perf_counter()
     k1 = dev_tensor(torch, rng.integers(0, MAX_USER_KEY - 1022, 1 << 14).astype(np.int32), device)
-    rows = kernel_rows(torch, d, q_lookup, k1, errs, launches)
+    rows = kernel_rows(torch, d, q_lookup, k1, errs, launches4)
     keys = dev_tensor(torch, rng.integers(0, MAX_USER_KEY + 1, 1 << 20).astype(np.int32), device)
-    d = profile_insert(torch, d, keys, keys % 1009)
+    d = profile(torch, f"insert of {keys.shape[0]} lanes", lambda: d.insert(keys, keys % 1009))
     log(f"phase 5 kernel timing: {time.perf_counter() - t0:.2f} s")
+    del d, q_lookup, keys
+    torch.cuda.empty_cache()
+
+    b, capacity = 1 << 16, 1 << 27
+    (slice_rates, bulk_keys, bulk_vals, lsm_d, sa_d), launches6 = drive(6, lambda: drive_slice(
+        torch, device, args.seed, log2_bulk=26, b=b, capacity=capacity, lsm_batches=1024, sa_calls=64,
+        sa_batches=64, n_lookups=1 << 20, n_windows=1 << 14))
+    require(launches6["bitonic_sort"] > 0 and launches6["merge_path"] > 0,
+            f"the batch sort or the pairwise merge did not run on phase 6's path: {launches6}")
+    launches = {name: launches4[name] + launches6[name] for name in kernels}
+    require(all(v > 0 for v in launches.values()), f"a kernel did not run on the main paths: {launches}")
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    t0 = time.perf_counter()
+    profile_direct(torch, device, lsm_d, sa_d, b, 16, args.seed)
+    del lsm_d, sa_d
+    torch.cuda.empty_cache()
+    rows += slice_kernel_rows(torch, device, bulk_keys, bulk_vals, b, capacity, errs, launches)
+    log(f"phase 5 kernel timing of the batch sort and the pairwise merge: {time.perf_counter() - t0:.2f} s")
+
     log(f"rates ({card}): insert {rates['insert_M_elem_per_s']:.3f} M elem/s, "
         f"lookup {rates['lookup_M_q_per_s']:.3f} M q/s, count {rates['count_M_q_per_s']:.4f} M q/s, "
         f"range {rates['range_M_q_per_s']:.4f} M q/s, cleanup {rates['cleanup_s'] * 1e3:.1f} ms, "
         f"maintain(7b) {rates['maintain_s'] * 1e3:.1f} ms, size {rates['size_s'] * 1e3:.1f} ms")
+    r = slice_rates
+    log(f"phase 6 rates ({card}): bulk build LSM {r['lsm_bulk_build_M_elem_per_s']:.3f} / SA "
+        f"{r['sa_bulk_build_M_elem_per_s']:.3f} M elem/s; direct update LSM {r['lsm_update_M_elem_per_s']:.3f} / "
+        f"SA {r['sa_update_M_elem_per_s']:.3f} M elem/s, ratio "
+        f"{r['lsm_update_M_elem_per_s'] / r['sa_update_M_elem_per_s']:.3f} (paper, K40c: 13.5 at 2^27); "
+        f"SA facade calls {r['sa_facade_M_elem_per_s']:.3f} M elem/s")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; total {time.perf_counter() - t_all:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))

@@ -1,4 +1,16 @@
-"""The `Dictionary` facade over the port's backends (the "lsm" backend so far)."""
+"""The `Dictionary` facade over the port's backends: the paper's GPU LSM
+("lsm") and its sorted-array baseline ("sorted_array").
+
+    from repro_torch.api import Dictionary
+
+    d = Dictionary.create("lsm", capacity=1 << 20)   # on the card
+    d = d.insert(keys, values)            # any length: split into b-wide sub-batches
+    found, vals = d.lookup(queries)
+    counts, ok = d.count(k1, k2)          # QueryPlan auto-sized, override available
+
+Unsupported ops raise `CapabilityError` naming the backend and the backends
+that do support the op (paper Table 1); `maintain` is LSM-only.
+"""
 
 from repro_torch.api.backend import (  # noqa: F401
     Backend,

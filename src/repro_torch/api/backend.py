@@ -82,6 +82,11 @@ class Backend(abc.ABC):
     def bulk_build(self, keys, values) -> BackendState:
         raise CapabilityError(self._no("bulk_build"))
 
+    def update_encoded(self, state: BackendState, key_vars, values) -> BackendState:
+        """Apply one b-wide encoded batch (key variables + values) under the
+        paper's in-batch rule."""
+        raise CapabilityError(self._no("update"))
+
     def stage_encoded(self, state: BackendState, key_vars, values, count: int) -> BackendState:
         """Stage one b-wide encoded sub-batch whose `count` real lanes are at
         the front in arrival order; the later lane is the newer write."""
@@ -162,11 +167,20 @@ def register_backend(cls: Type[Backend]) -> Type[Backend]:
     return cls
 
 
+# Backends of repro.api that this package does not have yet, with the
+# ROADMAP.md item that ports each.
+_NOT_YET_PORTED = {
+    "cuckoo": "ROADMAP.md queue A item 6 (core/cuckoo.py)",
+    "lsm_sharded": "ROADMAP.md queue A item 10 (core/distributed.py)",
+}
+
+
 def get_backend_class(name: str) -> Type[Backend]:
     try:
         return _REGISTRY[name]
     except KeyError:
-        raise KeyError(f"unknown backend {name!r}; registered: {sorted(_REGISTRY)}") from None
+        later = f"; {name!r} is not ported yet: {_NOT_YET_PORTED[name]}" if name in _NOT_YET_PORTED else ""
+        raise KeyError(f"unknown backend {name!r}; this package has {sorted(_REGISTRY)}{later}") from None
 
 
 def available_backends() -> Tuple[str, ...]:

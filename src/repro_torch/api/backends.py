@@ -1,6 +1,7 @@
-"""Built-in backends. This package has the paper's GPU LSM ("lsm") so far;
-the sorted array, the cuckoo hash and the sharded LSM of repro.api.backends
-are later parts of the port (ROADMAP.md)."""
+"""Built-in backends: the paper's GPU LSM ("lsm") and its sorted-array
+baseline ("sorted_array", §5.1). The cuckoo hash ("cuckoo") and the sharded
+LSM ("lsm_sharded") of repro.api.backends are later parts of the port
+(ROADMAP.md queue A, items 6 and 10); `Dictionary.create` refuses them."""
 
 from __future__ import annotations
 
@@ -12,14 +13,17 @@ import torch
 from repro_torch.api.backend import Backend, Capabilities, OccupancyStats, register_backend
 from repro_torch.api.plan import QueryPlan
 from repro_torch.core import cleanup, queries
+from repro_torch.core import sorted_array as sa
 from repro_torch.core.lsm import (
     LSMConfig,
     all_runs,
+    lsm_bulk_build,
     lsm_debt,
     lsm_flush,
     lsm_flush_cost,
     lsm_init,
     lsm_stage,
+    lsm_update,
 )
 
 
@@ -72,11 +76,10 @@ class LSMBackend(Backend):
         return lsm_init(self.cfg, self.device)
 
     def bulk_build(self, keys, values):
-        raise NotImplementedError(
-            "repro_torch's LSM has no bulk_build yet: it needs the bitonic sort "
-            "kernel, which ROADMAP.md queue B lists for the next slice of the port "
-            "(B2 bitonic_sort_pairs, with lsm_bulk_build and Dictionary.bulk_build)"
-        )
+        return lsm_bulk_build(self.cfg, keys, values)
+
+    def update_encoded(self, state, key_vars, values):
+        return lsm_update(self.cfg, state, key_vars, values)
 
     def stage_encoded(self, state, key_vars, values, count: int):
         return lsm_stage(self.cfg, state, key_vars, values, count)
@@ -117,3 +120,75 @@ class LSMBackend(Backend):
 
     def overflowed(self, state) -> bool:
         return state.overflowed
+
+
+@register_backend
+@dataclasses.dataclass(frozen=True)
+class SortedArrayBackend(Backend):
+    """One sorted run: O(n) per batch update (the Table 2 baseline), same
+    query semantics as the LSM via the shared run-based pipelines."""
+
+    name = "sorted_array"
+    caps = Capabilities(
+        supports_updates=True,
+        supports_deletes=True,
+        supports_ordered_queries=True,
+        supports_cleanup=True,
+    )
+
+    cfg: sa.SAConfig
+    b: int  # facade batch width; the SA core itself takes any width
+    device: torch.device
+
+    @classmethod
+    def from_options(cls, *, device, capacity=None, batch_size=None, **extra):
+        if extra:
+            raise TypeError(f"unknown options for backend 'sorted_array': {sorted(extra)}")
+        cap = int(capacity) if capacity is not None else 1 << 20
+        b = int(batch_size) if batch_size is not None else min(1024, cap)
+        return cls(sa.SAConfig(capacity=cap), b, torch.device(device))
+
+    @property
+    def batch_size(self) -> int:
+        return self.b
+
+    @property
+    def capacity(self) -> int:
+        return self.cfg.capacity
+
+    def init(self):
+        return sa.sa_init(self.cfg, self.device)
+
+    def bulk_build(self, keys, values):
+        return sa.sa_bulk_build(self.cfg, keys, values)
+
+    def update_encoded(self, state, key_vars, values):
+        return sa.sa_update_batch(self.cfg, state, key_vars, values)
+
+    def stage_encoded(self, state, key_vars, values, count: int):
+        # No staging buffer: apply at once with the recency sort. Staged
+        # elements are the newest run either way, so queries agree with the
+        # buffered LSM lane for lane (flush_state is a no-op).
+        return sa.sa_stage(self.cfg, state, key_vars, values, count)
+
+    def occupancy(self, state):
+        # No buffer, no debt tracker: everything lives in the one run.
+        return OccupancyStats(pending=0, resident=state.n, debt=0)
+
+    def lookup(self, state, keys):
+        return sa.sa_lookup(self.cfg, state, keys)
+
+    def count(self, state, k1, k2, plan: QueryPlan):
+        return sa.sa_count(self.cfg, state, k1, k2, plan.max_candidates)
+
+    def range(self, state, k1, k2, plan: QueryPlan):
+        return sa.sa_range(self.cfg, state, k1, k2, plan.max_candidates, plan.max_results)
+
+    def cleanup(self, state):
+        return sa.sa_cleanup(self.cfg, state)
+
+    def size(self, state):
+        return sa.sa_size(self.cfg, state)
+
+    def overflowed(self, state) -> bool:
+        return bool(state.n > self.cfg.capacity)

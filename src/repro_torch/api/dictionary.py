@@ -57,21 +57,35 @@ def _host_array(x) -> np.ndarray:
 def _check_key_domain(name: str, keys, valid=None) -> None:
     """Raise KeyDomainError for keys outside [0, MAX_USER_KEY], on the input
     as given (before any int32 cast, so overflow cannot wrap a bad key into
-    range). Lanes masked out by `valid` are exempt."""
-    a = _host_array(keys)
-    if a.dtype.kind not in "iu":
-        raise KeyDomainError(f"{name} must be an integer array, got dtype {a.dtype}")
-    wide = a.astype(np.int64)
-    bad = (wide < 0) | (wide > sem.MAX_USER_KEY)
-    if valid is not None:
-        bad = bad & _host_array(valid).astype(bool)
-    if bad.any():
+    range). Lanes masked out by `valid` are exempt. A tensor is checked on
+    its own device, so a bulk build on the card copies no keys to the host."""
+    if isinstance(keys, torch.Tensor):
+        if keys.dtype.is_floating_point or keys.dtype.is_complex or keys.dtype == torch.bool:
+            raise KeyDomainError(f"{name} must be an integer tensor, got dtype {keys.dtype}")
+        wide = keys.to(torch.int64)
+        bad = (wide < 0) | (wide > sem.MAX_USER_KEY)
+        if valid is not None:
+            bad &= torch.as_tensor(_host_array(valid).astype(bool), device=keys.device).reshape(bad.shape)
+        wide = wide[bad]
+        if wide.numel() == 0:
+            return
+        examples = wide[:5].tolist()
+    else:
+        a = np.asarray(keys)
+        if a.dtype.kind not in "iu":
+            raise KeyDomainError(f"{name} must be an integer array, got dtype {a.dtype}")
+        wide = a.astype(np.int64)
+        bad = (wide < 0) | (wide > sem.MAX_USER_KEY)
+        if valid is not None:
+            bad = bad & _host_array(valid).astype(bool)
+        if not bad.any():
+            return
         examples = np.asarray(a[bad]).ravel()[:5].tolist()
-        raise KeyDomainError(
-            f"{name} outside the key domain [0, {sem.MAX_USER_KEY}]: {examples} — "
-            "out-of-domain keys alias the placebo key or flip sign under the "
-            "status-bit encoding and would silently corrupt ordering"
-        )
+    raise KeyDomainError(
+        f"{name} outside the key domain [0, {sem.MAX_USER_KEY}]: {examples} — "
+        "out-of-domain keys alias the placebo key or flip sign under the "
+        "status-bit encoding and would silently corrupt ordering"
+    )
 
 
 def _as_tensor(x, dtype, device) -> torch.Tensor:
@@ -174,7 +188,7 @@ class Dictionary:
 
     @property
     def state(self):
-        """The underlying core state (LSMState)."""
+        """The underlying core state (LSMState or SAState)."""
         return self._live()
 
     def __repr__(self) -> str:
@@ -262,9 +276,18 @@ class Dictionary:
         return self.update(keys, is_delete=True, valid=valid)
 
     def bulk_build(self, keys, values) -> "Dictionary":
-        """Replace the contents with n unique keys (paper §5.2)."""
+        """Replace the contents with n unique keys in one sort-and-segment
+        pass (paper §5.2). n need not be a multiple of batch_size. Keys
+        outside the domain raise KeyDomainError and duplicate keys ValueError
+        (both skipped with `validate=False`); values are cast to int32."""
         self._live()
         self._require("bulk_build", self._backend.caps.supports_bulk_build)
+        if self._validate:
+            _check_key_domain("bulk_build keys", keys)
+        keys = _as_keys("keys", keys, self.device)
+        if self._validate and torch.unique(keys).shape[0] != keys.shape[0]:
+            raise ValueError("bulk_build requires unique keys (paper §5.2)")
+        values = _lanes("values", values, keys.shape[0], torch.int32, self.device)
         return self._evolve(self._backend.bulk_build(keys, values))
 
     def cleanup(self) -> "Dictionary":

@@ -1,9 +1,11 @@
-"""Carry LSM state across between this package and the JAX reference.
+"""Carry LSM and sorted-array state across between this package and the JAX
+reference.
 
 The exchange format is a mapping of numpy arrays with the field names of
 `repro.core.lsm.LSMState` (`key_vars` and `values` are sequences of one array
-per level), which is what `jax.device_get(state)._asdict()` gives. Neither
-direction imports JAX: the caller converts on its side.
+per level) or `repro.core.sorted_array.SAState`, which is what
+`jax.device_get(state)._asdict()` gives. Neither direction imports JAX: the
+caller converts on its side.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.lsm import LSMConfig, LSMState
+from repro_torch.core.sorted_array import SAConfig, SAState
 
 
 def _i32(a, device) -> torch.Tensor:
@@ -46,22 +49,41 @@ def lsm_state_from_numpy(cfg: LSMConfig, fields, device) -> LSMState:
     )
 
 
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
 def lsm_state_to_numpy(state: LSMState) -> dict:
     """Every `LSMState` field as numpy, under the JAX reference's names and
     dtypes (int32 arrays and scalars, a bool latch)."""
-    def host(t):
-        return t.detach().cpu().numpy()
-
     return dict(
-        key_vars=tuple(host(t) for t in state.key_vars),
-        values=tuple(host(t) for t in state.values),
+        key_vars=tuple(_host(t) for t in state.key_vars),
+        values=tuple(_host(t) for t in state.values),
         r=np.int32(state.r),
         overflowed=np.bool_(state.overflowed),
-        buf_kv=host(state.buf_kv),
-        buf_val=host(state.buf_val),
-        buf_seq=host(state.buf_seq),
+        buf_kv=_host(state.buf_kv),
+        buf_val=_host(state.buf_val),
+        buf_seq=_host(state.buf_seq),
         buf_n=np.int32(state.buf_n),
-        buf_sorted_kv=host(state.buf_sorted_kv),
-        buf_sorted_val=host(state.buf_sorted_val),
-        lvl_debt=host(state.lvl_debt),
+        buf_sorted_kv=_host(state.buf_sorted_kv),
+        buf_sorted_val=_host(state.buf_sorted_val),
+        lvl_debt=_host(state.lvl_debt),
     )
+
+
+def sa_state_from_numpy(cfg: SAConfig, fields, device) -> SAState:
+    """Build an `SAState` on `device` from the JAX state's fields as numpy."""
+    for name in ("key_vars", "values"):
+        if np.shape(fields[name]) != (cfg.capacity,):
+            raise ValueError(f"{name} must hold {cfg.capacity} slots, got {np.shape(fields[name])}")
+    return SAState(
+        key_vars=_i32(fields["key_vars"], device),
+        values=_i32(fields["values"], device),
+        n=_i32(fields["n"], device),
+    )
+
+
+def sa_state_to_numpy(state: SAState) -> dict:
+    """Every `SAState` field as numpy, under the JAX reference's names and
+    dtypes (int32 arrays and an int32 scalar)."""
+    return dict(key_vars=_host(state.key_vars), values=_host(state.values), n=_host(state.n))

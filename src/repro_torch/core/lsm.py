@@ -201,6 +201,69 @@ def lsm_stage(cfg: LSMConfig, state: LSMState, key_vars, values, count: int) -> 
     return state
 
 
+def lsm_update(cfg: LSMConfig, state: LSMState, key_vars, values) -> LSMState:
+    """Insert a mixed batch of b encoded updates (inserts and/or tombstones).
+
+    Paper §3.2/§4.1: sort the batch by the full key variable (a stable sort,
+    so a tombstone beats any same-batch insert of its key and, among
+    identical inserts, the earlier lane wins), then push it through the
+    cascade. This is the direct, paper-exact path: it bypasses the write
+    buffer, so with a non-empty buffer the staged elements would
+    (incorrectly) rank as newer than this batch. As in the reference, callers
+    keep the buffer empty or stage through `lsm_stage` (the facade).
+    """
+    b = cfg.batch_size
+    key_vars = sem.as_int32(key_vars)
+    values = sem.as_int32(values, key_vars.device)
+    if key_vars.shape != (b,) or values.shape != (b,):
+        raise ValueError(f"batch must have shape ({b},), got {tuple(key_vars.shape)}/{tuple(values.shape)}")
+    carry_kv, carry_val = ops.sort_pairs(key_vars, values)
+    return cascade.push_batch(cfg, state, carry_kv, carry_val)
+
+
+def lsm_insert(cfg: LSMConfig, state: LSMState, keys, values) -> LSMState:
+    """Insert a batch of b (key, value) pairs (original keys, not encoded)."""
+    return lsm_update(cfg, state, sem.encode_insert(keys), values)
+
+
+def lsm_delete(cfg: LSMConfig, state: LSMState, keys) -> LSMState:
+    """Delete a batch of b keys via tombstones (paper §3.3)."""
+    kv = sem.encode_delete(keys)
+    return lsm_update(cfg, state, kv, torch.full_like(kv, sem.EMPTY_VALUE))
+
+
+def lsm_update_mixed(cfg: LSMConfig, state: LSMState, keys, values, is_delete) -> LSMState:
+    """Mixed batch: is_delete[i] selects tombstone vs regular insert."""
+    kv = sem.encode(keys, is_delete)
+    tomb = sem.is_tombstone(kv)
+    return lsm_update(cfg, state, kv, torch.where(tomb, sem.EMPTY_VALUE, sem.as_int32(values, kv.device)))
+
+
+def lsm_bulk_build(cfg: LSMConfig, keys, values) -> LSMState:
+    """Build from n unique keys on their device: one sort, then the level
+    segmentation of CLEANUP (paper §5.2).
+
+    n need not be a multiple of b: the last resident batch is placebo-padded.
+    More than `max_batches` batches raise ValueError.
+    """
+    keys = sem.as_int32(keys)
+    values = sem.as_int32(values, keys.device)
+    n = keys.shape[0]
+    b = cfg.batch_size
+    k = -(-n // b)  # the last batch may be placebo-padded
+    if k > cfg.max_batches:
+        raise ValueError("bulk build exceeds configured capacity")
+    kv, vals = ops.sort_pairs(sem.encode_insert(keys), values)
+    state = lsm_init(cfg, keys.device)
+    # Only the k * b slots the resident levels take need the placebo tail.
+    sorted_kv, sorted_val = sem.placebo(k * b, keys.device)
+    sorted_kv[:n], sorted_val[:n] = kv, vals
+    del kv, vals
+    cascade.redistribute(cfg, sorted_kv, sorted_val, k, state.key_vars, state.values)
+    state.r = k
+    return state
+
+
 def lsm_flush(cfg: LSMConfig, state: LSMState, min_pending: int = 1) -> LSMState:
     """Flush the write buffer through the cascade if it holds >= min_pending
     elements (never when empty). A partial buffer is placebo-padded to a

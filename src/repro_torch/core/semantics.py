@@ -28,32 +28,33 @@ EMPTY_VALUE = 0
 INT32_MAX = (1 << 31) - 1
 
 
-def _i32(x) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.int32)
+def as_int32(x, device=None) -> torch.Tensor:
+    """`x` as an int32 tensor (no copy when it already is one on `device`)."""
+    return torch.as_tensor(x, dtype=torch.int32, device=device)
 
 
 def encode(keys, is_tombstone) -> torch.Tensor:
     """Pack original keys and status bits; `is_tombstone` True marks a delete."""
-    keys = _i32(keys)
+    keys = as_int32(keys)
     tomb = torch.as_tensor(is_tombstone, dtype=torch.bool, device=keys.device)
     return (keys << 1) | (~tomb).to(torch.int32)
 
 
 def encode_insert(keys) -> torch.Tensor:
-    return (_i32(keys) << 1) | STATUS_REGULAR
+    return (as_int32(keys) << 1) | STATUS_REGULAR
 
 
 def encode_delete(keys) -> torch.Tensor:
-    return (_i32(keys) << 1) | STATUS_TOMBSTONE
+    return (as_int32(keys) << 1) | STATUS_TOMBSTONE
 
 
 def original_key(key_vars) -> torch.Tensor:
     """Strip the status bit (key variables are non-negative)."""
-    return _i32(key_vars) >> 1
+    return as_int32(key_vars) >> 1
 
 
 def status_bit(key_vars) -> torch.Tensor:
-    return _i32(key_vars) & 1
+    return as_int32(key_vars) & 1
 
 
 def is_tombstone(key_vars) -> torch.Tensor:

@@ -1,11 +1,12 @@
 """The LSM's compute hot spots, as the core modules call them.
 
 Each function takes tensors on one device. On a CUDA device the kernel
-wrappers (`merge_path`, `lsm_lookup`) launch the hand-written CUDA kernels and
-raise if a build or launch fails; on the CPU they run their plain versions.
-Nothing else selects a path: no environment variable, no shape gate. The two
-sorts of the main path have no kernel of their own (the JAX package leaves
-them to `lax.sort`) and are PyTorch sorts here.
+wrappers (`merge_path`, `bitonic_sort`, `lsm_lookup`) launch the hand-written
+CUDA kernels and raise if a build or launch fails; on the CPU they run their
+plain versions. Nothing else selects a path: no environment variable, and
+none of the reference's shape gates (power-of-two sorts, 256-multiple
+merges). The write buffer's recency sort has no kernel of its own (the JAX
+package leaves it to `lax.sort`) and is a PyTorch sort here.
 """
 
 from __future__ import annotations
@@ -13,7 +14,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import semantics as sem
-from repro_torch.kernels import lsm_lookup, merge_path
+from repro_torch.kernels import bitonic_sort, lsm_lookup, merge_path
+
+
+def merge_sorted(a_kv, a_val, b_kv, b_val):
+    """Stable original-key merge of two sorted runs; `a` is the newer run
+    (ties: a first)."""
+    return merge_path.merge_path(a_kv, a_val, b_kv, b_val)
 
 
 def merge_cascade(runs, *, out=None):
@@ -23,6 +30,13 @@ def merge_cascade(runs, *, out=None):
     return merge_path.merge_cascade_path(
         [kv for kv, _ in runs], [v for _, v in runs], out=out
     )
+
+
+def sort_pairs(key_vars, values):
+    """Sort (key_var, value) pairs by the full key variable, stable: a
+    tombstone comes before every insert of its key, and identical key
+    variables keep input order."""
+    return bitonic_sort.bitonic_sort_pairs(key_vars, values)
 
 
 def sort_pairs_recency(key_vars, values):

@@ -36,6 +36,14 @@ def merge_cascade_ref(runs_kv, runs_val):
     return out_kv, out_val
 
 
+def sort_ref(key_vars, values):
+    """Sort a batch by the FULL key variable (status bit included), stable:
+    a tombstone for key k comes before any same-batch insert of k (paper
+    §4.1), and identical key variables keep input order."""
+    order = torch.sort(key_vars, stable=True).indices
+    return key_vars[order], values[order]
+
+
 def fused_lookup_ref(flat_kv, flat_val, query_keys):
     """First flat match per query, by a dense [q, n] match matrix (test
     oracle only: O(q * n))."""

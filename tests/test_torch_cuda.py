@@ -10,8 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import lsm_lookup, merge_path
-from torch_cases import MERGE_CASES, QUERY_EDGES, eq, lookup_case, runs_np, sorted_run, t
+from repro_torch.kernels import bitonic_sort, lsm_lookup, merge_path
+from torch_cases import (
+    MERGE_CASES, PAIR_LENGTHS, QUERY_EDGES, SORT_NS, eq, lookup_case, merge_pair, runs_np, sort_case,
+    sorted_run, t,
+)
 
 
 @pytest.fixture
@@ -56,6 +59,10 @@ def test_cuda_launch_rejects_mixed_devices(cuda):
         merge_path.merge_cascade_path([kv.to(cuda), kv], [kv.to(cuda), kv])
     with pytest.raises(ValueError, match="CUDA"):
         lsm_lookup.fused_lookup_runs([kv.to(cuda)], [kv], kv.to(cuda))
+    with pytest.raises(ValueError, match="CUDA"):
+        merge_path.merge_path(kv.to(cuda), kv.to(cuda), kv, kv)
+    with pytest.raises(ValueError, match="CUDA"):
+        bitonic_sort.block_sort(kv.to(cuda), kv)
 
 
 @pytest.mark.cuda
@@ -64,5 +71,45 @@ def test_cuda_fused_lookup_matches_plain(cuda):
     got = lsm_lookup.fused_lookup_runs(
         [t(kv).to(cuda) for kv, _ in runs], [t(v).to(cuda) for _, v in runs], t(q).to(cuda))
     exp = lsm_lookup.fused_lookup_runs([t(kv) for kv, _ in runs], [t(v) for _, v in runs], t(q))
+    eq(got[0].cpu(), exp[0])
+    eq(got[1].cpu(), exp[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SORT_NS + [1 << 16, 5 << 12])
+def test_cuda_sort_matches_plain(cuda, n):
+    kv, val = sort_case(n, n, 6)  # few distinct keys: identical key variables repeat
+    got = bitonic_sort.bitonic_sort_pairs(t(kv).to(cuda), t(val).to(cuda))
+    exp = bitonic_sort.sort_pairs_plain(t(kv), t(val))
+    eq(got[0].cpu(), exp[0])
+    eq(got[1].cpu(), exp[1])
+    got = bitonic_sort.block_sort(t(kv).to(cuda), t(val).to(cuda))
+    exp = bitonic_sort.block_sort_plain(t(kv), t(val))
+    eq(got[0].cpu(), exp[0])
+    eq(got[1].cpu(), exp[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("na", PAIR_LENGTHS + [3000])
+@pytest.mark.parametrize("nb", PAIR_LENGTHS + [5000])
+def test_cuda_merge_path_matches_plain(cuda, na, nb):
+    for compare_full in (False, True):
+        runs = merge_pair(na * 7 + nb, na, nb, 30, compare_full)
+        args = [t(a) for run in runs for a in run]
+        got = merge_path.merge_path(*[a.to(cuda) for a in args], compare_full=compare_full)
+        exp = merge_path.merge_path(*args, compare_full=compare_full)
+        eq(got[0].cpu(), exp[0])
+        eq(got[1].cpu(), exp[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,width", [(5, 8), (13, 4), (3000, 1024), (5000, 1024), (1 << 16, 1 << 15)])
+def test_cuda_merge_round_matches_plain(cuda, n, width):
+    kv, val = map(t, sort_case(n, n, 50))
+    for s in range(0, n, width):  # each run sorted by the full key variable
+        order = torch.sort(kv[s:s + width], stable=True).indices
+        kv[s:s + width], val[s:s + width] = kv[s:s + width][order], val[s:s + width][order]
+    got = merge_path.merge_round(kv.to(cuda), val.to(cuda), width, compare_full=True)
+    exp = merge_path.merge_round(kv, val, width, compare_full=True)
     eq(got[0].cpu(), exp[0])
     eq(got[1].cpu(), exp[1])

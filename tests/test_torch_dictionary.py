@@ -1,9 +1,10 @@
 """Facade parity: repro_torch.api.Dictionary against repro.api.Dictionary.
 
 tests/harness.py's op sequences (ragged updates, duplicates, tombstone churn,
-flush, cleanup, budgeted maintain) replay through both facades; after every
-op both must equal the dict oracle and each other, range padding included.
-Also: linear handles, key-domain errors, this slice's bulk_build, and the
+flush, cleanup, budgeted maintain) replay through both facades, for the
+"lsm" and "sorted_array" backends; after every op both must equal the dict
+oracle and each other, range padding included. Also: bulk_build and its
+checks, linear handles, key-domain errors, capability errors, and the
 card-by-default rule.
 """
 
@@ -13,7 +14,9 @@ import torch
 
 import harness
 from repro.api import Dictionary as JaxDictionary
+from repro.api import KeyDomainError as JaxKeyDomainError
 from repro_torch.api import (
+    CapabilityError,
     ConsumedHandleError,
     Dictionary,
     KeyDomainError,
@@ -23,10 +26,10 @@ from repro_torch.api import dictionary as tdict
 from repro_torch.core import semantics as sem
 
 
-def both(**options):
+def both(backend="lsm", **options):
     return {
-        "torch": Dictionary.create("lsm", device="cpu", **options),
-        "jax": JaxDictionary.create("lsm", **options),
+        "torch": Dictionary.create(backend, device="cpu", **options),
+        "jax": JaxDictionary.create(backend, **options),
     }
 
 
@@ -44,6 +47,73 @@ def test_gen_ops_parity(seed, b, options):
     plan = QueryPlan(max_candidates=512, max_results=512)
     dicts = both(capacity=63 * b, batch_size=b, **options)  # no overflow: the oracle has none
     harness.run_differential(dicts, ops, plan=plan, query_keys=np.concatenate([pool, [3, 4]]), k1=k1, k2=k2)
+
+
+@pytest.mark.parametrize("seed,b", [(4, 8), (5, 16)])
+def test_gen_ops_parity_sorted_array(seed, b):
+    rng = np.random.default_rng(seed)
+    pool = harness.key_pool(rng)
+    ops = harness.gen_ops(rng, pool, n_steps=9, batch_size=b)
+    k1, k2 = harness.query_ranges(pool)
+    plan = QueryPlan(max_candidates=512, max_results=512)
+    dicts = both("sorted_array", capacity=63 * b, batch_size=b)
+    harness.run_differential(dicts, ops, plan=plan, query_keys=np.concatenate([pool, [3, 4]]), k1=k1, k2=k2)
+
+
+@pytest.mark.parametrize("backend,n", [("lsm", 45), ("sorted_array", 45)])
+def test_bulk_build_parity(backend, n):
+    rng = np.random.default_rng(n)
+    pool = harness.key_pool(rng, extra=96)
+    keys = rng.choice(pool, n, replace=False)
+    vals = rng.integers(-1000, 1000, n).astype(np.int32)
+    dicts = both(backend, capacity=504, batch_size=8)
+    dicts = {name: d.bulk_build(keys, vals) for name, d in dicts.items()}
+    k1, k2 = harness.query_ranges(pool)
+    plan = QueryPlan(max_candidates=512, max_results=512)
+    query_keys = np.concatenate([pool, [3, 4]])
+    raw = [harness.check_vs_oracle(name, d, dict(zip(keys.tolist(), vals.tolist())), query_keys, k1, k2, plan)
+           for name, d in dicts.items()]
+    for got, exp in zip(*raw):
+        np.testing.assert_array_equal(got, exp)
+    # Then updates on top. The first re-writes what the bulk build holds, so
+    # the differential run's oracle starts from it.
+    ops = [("update", keys, vals, np.zeros(n, bool))] + harness.gen_ops(rng, pool, n_steps=3, batch_size=8)
+    harness.run_differential(dicts, ops, plan=plan, query_keys=query_keys, k1=k1, k2=k2)
+
+
+@pytest.mark.parametrize("backend", ["lsm", "sorted_array"])
+def test_bulk_build_checks(backend):
+    d = Dictionary.create(backend, device="cpu", capacity=64, batch_size=8)
+    j = JaxDictionary.create(backend, capacity=64, batch_size=8)
+    for h, domain_error in ((d, KeyDomainError), (j, JaxKeyDomainError)):
+        with pytest.raises(domain_error):
+            h.bulk_build(np.array([1, sem.PLACEBO_KEY]), np.array([1, 2]))
+        with pytest.raises(ValueError, match="unique"):
+            h.bulk_build(np.array([4, 9, 4]), np.array([1, 2, 3]))
+    # A refused call leaves the handle live; a bulk build consumes it.
+    built = d.bulk_build(torch.tensor([9, 4, 7]), 5)
+    assert built.lookup([4, 7, 9, 1])[1].tolist() == [5, 5, 5, 0]
+    with pytest.raises(ConsumedHandleError):
+        d.lookup([4])
+    # validate=False skips the checks.
+    loose = Dictionary.create(backend, device="cpu", capacity=64, batch_size=8, validate=False)
+    loose = loose.bulk_build(np.array([3, 3]), np.array([1, 2]))
+    assert int(loose.size()) == 1
+    with pytest.raises(ValueError, match="capacity"):
+        Dictionary.create(backend, device="cpu", capacity=64, batch_size=8).bulk_build(
+            np.arange(200), np.arange(200))
+
+
+def test_sorted_array_capabilities():
+    d = Dictionary.create("sorted_array", device="cpu", capacity=64, batch_size=8)
+    with pytest.raises(CapabilityError, match="maintain"):
+        d.maintain(8)
+    with pytest.raises(CapabilityError, match="maintain"):
+        Dictionary.create("sorted_array", device="cpu", capacity=64, maintenance_budget=8)
+    d = d.insert([5, 5, 6], [1, 2, 3])
+    assert d.pending() == 0 and d.flush_cost_estimate() == 0
+    assert [int(x) for x in d.occupancy()] == [0, 3, 0]
+    assert not d.overflowed()
 
 
 def test_valid_mask_and_occupancy_parity():
@@ -99,16 +169,20 @@ def test_empty_update_keeps_handle():
 
 
 @pytest.mark.parametrize("bad", [[-1], [sem.PLACEBO_KEY], [1 << 31], [5, sem.MAX_USER_KEY + 7]])
-def test_key_domain_errors(bad):
+@pytest.mark.parametrize("wrap", [np.array, torch.tensor], ids=["numpy", "tensor"])
+def test_key_domain_errors(bad, wrap):
+    # Tensors are checked on their own device, numpy arrays on the host.
     d = Dictionary.create("lsm", device="cpu", capacity=64, batch_size=8)
     with pytest.raises(KeyDomainError):
-        d.insert(np.array(bad, np.int64), np.zeros(len(bad), np.int32))
+        d.insert(wrap(bad, dtype=np.int64 if wrap is np.array else torch.int64), np.zeros(len(bad), np.int32))
     with pytest.raises(KeyDomainError):
-        d.lookup(np.array(bad, np.int64))
+        d.lookup(wrap(bad))
     with pytest.raises(KeyDomainError):
-        d.count(np.array(bad, np.int64), np.array(bad, np.int64))
+        d.count(wrap(bad), wrap(bad))
+    with pytest.raises(KeyDomainError):
+        d.bulk_build(wrap(bad), np.zeros(len(bad), np.int32))
     # Masked-out lanes are exempt, and the handle survives a refused call.
-    d = d.insert(np.array(bad + [3], np.int64), np.zeros(len(bad) + 1, np.int32),
+    d = d.insert(wrap(bad + [3]), np.zeros(len(bad) + 1, np.int32),
                  valid=np.array([False] * len(bad) + [True]))
     assert d.lookup([3])[0].tolist() == [True]
 
@@ -117,12 +191,9 @@ def test_float_keys_rejected():
     d = Dictionary.create("lsm", device="cpu", capacity=64, batch_size=8)
     with pytest.raises(KeyDomainError):
         d.lookup(np.array([1.5]))
-
-
-def test_bulk_build_not_in_this_slice():
-    d = Dictionary.create("lsm", device="cpu", capacity=64, batch_size=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        d.bulk_build([1, 2], [3, 4])
+    for bad in (torch.tensor([1.5]), torch.tensor([True])):
+        with pytest.raises(KeyDomainError):
+            d.lookup(bad)
 
 
 def test_create_defaults_to_the_card(monkeypatch):
@@ -137,8 +208,9 @@ def test_create_defaults_to_the_card(monkeypatch):
 def test_create_option_errors():
     with pytest.raises(TypeError):
         Dictionary.create("lsm", device="cpu", load_factor=0.5)
-    with pytest.raises(KeyError):
-        Dictionary.create("cuckoo", device="cpu")
+    for name, item in (("cuckoo", "item 6"), ("lsm_sharded", "item 10")):
+        with pytest.raises(KeyError, match=f"ROADMAP.md queue A {item}"):
+            Dictionary.create(name, device="cpu")
     with pytest.raises(ValueError):
         Dictionary.create("lsm", device="cpu", batch_size=8, flush_threshold=9)
     with pytest.raises(ValueError):

@@ -65,7 +65,7 @@ def test_merge_cascade_matches_pallas_interpret(lengths, key_hi):
 
 
 def test_merge_compare_full_matches_pallas_pairwise():
-    # The next slice's merge_path is this kernel with K = 2 and shift 0.
+    # With K = 2 and shift 0 the K-way merge computes the pairwise merge_path too.
     rng = np.random.default_rng(5)
     a = np.sort(rng.integers(0, 100, 256)).astype(np.int32)
     b = np.sort(rng.integers(0, 100, 256)).astype(np.int32)

@@ -2,7 +2,9 @@
 
 Random sequences of stage (ragged counts, duplicate keys, tombstones), flush,
 cleanup, maintain (the harness's budget menu, with and without only_if_debt)
-and overflow run through both packages from one start state. After every op
+and overflow run through both packages from one start state; so do
+sequences of the direct, paper-exact updates (lsm_update / insert / delete /
+update_mixed, with in-batch duplicates) and bulk builds. After every op
 every LSMState field must be equal; every few ops lookup, count and range
 must be equal too, including `ok` and the range padding. Exact integers.
 """
@@ -40,6 +42,10 @@ def jitted(name, cfg, *statics):
             "count": lambda st, k1, k2: jq.lsm_count(cfg, st, k1, k2, statics[0]),
             "range": lambda st, k1, k2: jq.lsm_range(cfg, st, k1, k2, *statics),
             "size": lambda st: jclean.lsm_valid_count(cfg, st),
+            "update": lambda st, kv, v: jlsm.lsm_update(cfg, st, kv, v),
+            "insert": lambda st, k, v: jlsm.lsm_insert(cfg, st, k, v),
+            "delete": lambda st, k: jlsm.lsm_delete(cfg, st, k),
+            "mixed": lambda st, k, v, d: jlsm.lsm_update_mixed(cfg, st, k, v, d),
         }
         _JIT[key] = jax.jit(fns[name])
     return _JIT[key]
@@ -150,10 +156,83 @@ def test_core_parity_from_bulk_build():
     pool = np.union1d(key_pool(rng, b), keys).astype(np.int32)
     vals = rng.integers(-100, 100, keys.size).astype(np.int32)
     js = jlsm.lsm_bulk_build(jlsm.LSMConfig(b, L), jnp.asarray(keys), jnp.asarray(vals))
-    ts = convert.lsm_state_from_numpy(tlsm.LSMConfig(b, L), jax.device_get(js)._asdict(), "cpu")
+    ts = tlsm.lsm_bulk_build(tlsm.LSMConfig(b, L), torch.from_numpy(keys), torch.from_numpy(vals))
     assert_states_equal(js, ts, "bulk build")
     assert_queries_equal(b, L, js, ts, pool, "bulk build")
     replay(b, L, js, ts, rng, 20, pool)
+
+
+@pytest.mark.parametrize("n", [0, 1, 8, 21, 56, 120])
+def test_bulk_build_parity(n):
+    b, L = 8, 4  # capacity 120: n = 120 fills every level
+    rng = np.random.default_rng(n)
+    keys = rng.choice(1 << 29, n, replace=False).astype(np.int32)
+    vals = rng.integers(-100, 100, n).astype(np.int32)
+    js = jlsm.lsm_bulk_build(jlsm.LSMConfig(b, L), jnp.asarray(keys), jnp.asarray(vals))
+    ts = tlsm.lsm_bulk_build(tlsm.LSMConfig(b, L), torch.from_numpy(keys), torch.from_numpy(vals))
+    assert_states_equal(js, ts, f"bulk build of {n}")
+
+
+def test_bulk_build_beyond_capacity_raises():
+    keys = np.arange(121, dtype=np.int32)
+    with pytest.raises(ValueError, match="capacity"):
+        jlsm.lsm_bulk_build(jlsm.LSMConfig(8, 4), jnp.asarray(keys), jnp.asarray(keys))
+    with pytest.raises(ValueError, match="capacity"):
+        tlsm.lsm_bulk_build(tlsm.LSMConfig(8, 4), torch.from_numpy(keys), torch.from_numpy(keys))
+
+
+def direct_batch(rng, b, pool):
+    """b lanes of keys from the pool with in-batch duplicates: a lane may
+    repeat an earlier lane's key (the same insert twice with another value,
+    or an insert and a delete of one key)."""
+    keys = rng.choice(pool, b).astype(np.int32)
+    for lane in range(1, b):
+        if rng.random() < 0.3:
+            keys[lane] = keys[rng.integers(0, lane)]
+    vals = rng.integers(-1000, 1000, b).astype(np.int32)
+    return keys, vals, rng.random(b) < 0.3
+
+
+@pytest.mark.parametrize("seed,b,L,n_ops", [(0, 8, 2, 14), (1, 8, 4, 24)])
+def test_direct_update_parity(seed, b, L, n_ops):
+    cfg_j, cfg_t = jlsm.LSMConfig(b, L), tlsm.LSMConfig(b, L)
+    rng = np.random.default_rng(seed)
+    pool = key_pool(rng, b)
+    js, ts = jlsm.lsm_init(cfg_j), tlsm.lsm_init(cfg_t, "cpu")
+    for step in range(n_ops):  # L = 2 holds 3 batches: the fourth overflows
+        keys, vals, dels = direct_batch(rng, b, pool)
+        kind = ("mixed", "insert", "delete", "update", "cleanup")[step % 5]
+        where = f"step {step} {kind}"
+        if kind == "mixed":
+            js = jitted(kind, cfg_j)(js, keys, vals, dels)
+            ts = tlsm.lsm_update_mixed(cfg_t, ts, torch.from_numpy(keys), torch.from_numpy(vals),
+                                       torch.from_numpy(dels))
+        elif kind == "insert":
+            js = jitted(kind, cfg_j)(js, keys, vals)
+            ts = tlsm.lsm_insert(cfg_t, ts, torch.from_numpy(keys), torch.from_numpy(vals))
+        elif kind == "delete":
+            js = jitted(kind, cfg_j)(js, keys)
+            ts = tlsm.lsm_delete(cfg_t, ts, torch.from_numpy(keys))
+        elif kind == "update":
+            kv = ((keys << 1) | ~dels).astype(np.int32)
+            vals = np.where(dels, jsem.EMPTY_VALUE, vals).astype(np.int32)
+            js = jitted(kind, cfg_j)(js, kv, vals)
+            ts = tlsm.lsm_update(cfg_t, ts, torch.from_numpy(kv), torch.from_numpy(vals))
+        else:
+            js = jitted(kind, cfg_j)(js)
+            ts = tclean.lsm_cleanup(cfg_t, ts)
+        assert_states_equal(js, ts, where)
+        if step % 4 == 3:
+            assert_queries_equal(b, L, js, ts, pool, where)
+    assert ts.overflowed == (L == 2)
+    assert_queries_equal(b, L, js, ts, pool, "end")
+
+
+def test_direct_update_rejects_wrong_width():
+    cfg = tlsm.LSMConfig(8, 3)
+    with pytest.raises(ValueError, match="shape"):
+        tlsm.lsm_update(cfg, tlsm.lsm_init(cfg, "cpu"), torch.zeros(7, dtype=torch.int32),
+                        torch.zeros(7, dtype=torch.int32))
 
 
 def test_overflow_latches_and_keeps_levels():

@@ -29,6 +29,37 @@ def sorted_run(rng, n, key_hi, tomb_frac=0.3, placebo_tail=0):
     return kv, val
 
 
+SORT_NS = [0, 1, 7, 8, 1000, 1024, 1025, 3000, 4096]
+PAIR_LENGTHS = [0, 1, 255, 256, 257]  # each side of a pairwise merge on the card
+
+
+def sort_case(seed, n, key_hi, placebo_frac=0.1):
+    """A batch as an update sees it: random keys below key_hi with mixed
+    status bits, some placebo lanes, and distinct values (so a test sees
+    which of two identical key variables came first)."""
+    rng = np.random.default_rng(seed)
+    kv = (rng.integers(0, key_hi, n) << 1) | (rng.random(n) < 0.6)
+    kv[rng.random(n) < placebo_frac] = PLACEBO_KV
+    return kv.astype(np.int32), rng.permutation(n).astype(np.int32) - n // 2
+
+
+def merge_pair(seed, na, nb, key_hi, full):
+    """Two runs for a pairwise merge, each sorted by what the merge compares:
+    the full key variable (`full`) or the original key."""
+    rng = np.random.default_rng(seed)
+    runs = [sorted_run(rng, n, key_hi, placebo_tail=n // 5) for n in (na, nb)]
+    if full:
+        runs = [(np.sort(kv), v) for kv, v in runs]
+    return runs
+
+
+def stable_merge_np(a_kv, a_val, b_kv, b_val, shift):
+    """Oracle: a stable sort of the concatenation, `a` first, by kv >> shift."""
+    kv, val = np.concatenate([a_kv, b_kv]), np.concatenate([a_val, b_val])
+    order = np.argsort(kv >> shift, kind="stable")
+    return kv[order], val[order]
+
+
 def runs_np(seed, lengths, key_hi, placebo_frac=0.25):
     rng = np.random.default_rng(seed)
     return [sorted_run(rng, n, key_hi, placebo_tail=int(n * placebo_frac)) for n in lengths]
