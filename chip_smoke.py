@@ -8,7 +8,10 @@ Phases, one line each with its seconds:
   2. build: every CUDA kernel from src/repro_torch/csrc, one nvcc per source,
      all started together;
   3. each kernel against its plain PyTorch version on the card, by exact
-     equality, at the main path's sizes and at edge cases;
+     equality, at the main path's sizes and at edge cases (for the K-way
+     merge: tie-heavy runs across many tiles, LSM placebo tails, K = 1,
+     grouped rounds with a ragged last group, and its split launcher at
+     every tile boundary of an LSM-shaped case);
   4. the main path through the `Dictionary` facade at the paper's Table 2
      scale (n = 2^27 resident elements, b = 2^16, L = 12): fill by inserts,
      delete, re-insert, flush, lookup, count, range, maintain, cleanup, size,
@@ -16,8 +19,10 @@ Phases, one line each with its seconds:
      and every kernel's launch count moved;
   5. each kernel's time at the main path's shapes beside its bound, its plain
      version's time and a PyTorch library call's, as one `kernels` JSON line
-     (the rows of the batch sort and the pairwise merge are timed after
-     phase 6, on its data);
+     (the cascade merge also at one push_batch shape; the rows of the batch
+     sort, timed as the whole function with its block sort and first K-way
+     round beside it, and of the pairwise merge are timed after phase 6, on
+     its data);
   6. the paper-exact update path, bulk build and the sorted-array baseline
      at full width (phase 4's dictionary freed first): an LSM of capacity
      2^27 (b = 2^16, L = 12) bulk-built from 2^26 unique keys, then 1024
@@ -34,6 +39,7 @@ it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import subprocess
@@ -130,6 +136,40 @@ def check_kernels(torch, device, rng):
         errs["merge_cascade"] = max(errs["merge_cascade"], max_err(torch, got, exp))
         cases += 1
 
+    # Tie-heavy K-way cases: 32 runs of one key spanning many 4096-element
+    # tiles (both compare modes); LSM levels with placebo tails, every third
+    # level all placebos, so many tile boundaries fall inside one equal-key
+    # segment across runs; K = 1. Then the split launcher at every tile
+    # boundary of the LSM case.
+    lsm_lengths = [1 << 12] + [1 << (12 + i) for i in range(12)]
+    tie_cases = [
+        ([sorted_run(rng, (1 << 15) + s, 1, placebo_frac=0) for s in range(32)], (False, True)),
+        ([sorted_run(rng, n, 1 << 22, placebo_frac=1.0 if s % 3 == 2 else 0.25)
+          for s, n in enumerate(lsm_lengths)], (False,)),
+        ([sorted_run(rng, 0, 10)], (False,)), ([sorted_run(rng, 1, 10)], (False,)),
+        ([sorted_run(rng, (1 << 20) + 3, 1 << 20)], (False, True)),
+    ]
+    for runs, modes in tie_cases:
+        for full in modes:
+            if full:
+                runs = [(np.sort(kv), v) for kv, v in runs]
+            kvs = [dev_tensor(torch, kv, device) for kv, _ in runs]
+            vals = [dev_tensor(torch, v, device) for _, v in runs]
+            got = merge_path.merge_cascade_path(kvs, vals, compare_full=full)
+            exp = merge_path.merge_cascade_plain(kvs, vals, shift=0 if full else 1)
+            torch.cuda.synchronize()
+            errs["merge_cascade"] = max(errs["merge_cascade"], max_err(torch, got, exp))
+            cases += 1
+    kvs = [dev_tensor(torch, kv, device) for kv, _ in tie_cases[1][0]]
+    total = sum(lsm_lengths)
+    diags = torch.cat([torch.arange(0, total, 4096, device=device), torch.tensor([total], device=device)])
+    got = merge_path.cascade_split(kvs, diags)
+    exp = merge_path.cascade_split_plain(kvs, diags, shift=1)
+    torch.cuda.synchronize()
+    errs["merge_cascade"] = max(errs["merge_cascade"], max_err(torch, [got], [exp]))
+    cases += 1
+    del kvs, vals, tie_cases
+
     kv, _ = sorted_run(rng, 1 << 26, MAX_USER_KEY + 1)
     q = np.concatenate([rng.integers(0, MAX_USER_KEY + 1, (1 << 20) - 4),
                         [0, MAX_USER_KEY, PLACEBO_KEY, INT32_MAX]]).astype(np.int32)
@@ -160,7 +200,7 @@ def check_kernels(torch, device, rng):
 
     # Batch sort: few distinct keys, so identical key variables repeat and
     # the values (the lanes) show that the order is stable.
-    for n in (1, 7, 8, 1000, 1024, 1025, 1 << 16, 1 << 20):
+    for n in (1, 7, 8, 1000, 4096, 4097, 1 << 16, (1 << 22) + 5):
         kv = dev_tensor(torch, (rng.integers(0, 50, n) << 1 | (rng.random(n) < 0.6)).astype(np.int32), device)
         val = torch.arange(n, dtype=torch.int32, device=device)
         for fn, plain in ((bitonic_sort.bitonic_sort_pairs, bitonic_sort.sort_pairs_plain),
@@ -171,7 +211,7 @@ def check_kernels(torch, device, rng):
             cases += 1
 
     # Pairwise merge: every pair of edge lengths and one large pair, both
-    # compare modes; then merge rounds with a ragged last pair.
+    # compare modes.
     lengths = [(na, nb) for na in (0, 1, 255, 256, 257) for nb in (0, 1, 255, 256, 257)]
     for na, nb in lengths + [(1 << 16, 1 << 20), (1 << 20, 1 << 16)]:
         for full in (False, True):
@@ -184,14 +224,16 @@ def check_kernels(torch, device, rng):
             torch.cuda.synchronize()
             errs["merge_path"] = max(errs["merge_path"], max_err(torch, got, exp))
             cases += 1
-    for n, width in ((5000, 1024), ((1 << 20) + 3000, 1 << 18)):
+    # Grouped K-way merges on the full key variable (the sort's rounds), the
+    # last group short and with fewer runs.
+    for n, width, k in ((32 * 4096 * 3 + 12345, 4096, 32), ((1 << 20) + 3000, 1000, 5)):
         kv = dev_tensor(torch, rng.permutation(sorted_run(rng, n, 1 << 12)[0]), device)
         kv = torch.cat([torch.sort(kv[s:s + width]).values for s in range(0, n, width)])  # sorted runs
         val = torch.arange(n, dtype=torch.int32, device=device)
-        got = merge_path.merge_round(kv, val, width, compare_full=True)
-        exp = merge_path.merge_round_plain(kv, val, width, shift=0)
+        got = merge_path.merge_groups(kv, val, width, k, compare_full=True)
+        exp = merge_path.merge_groups_plain(kv, val, width, k, shift=0)
         torch.cuda.synchronize()
-        errs["merge_path"] = max(errs["merge_path"], max_err(torch, got, exp))
+        errs["merge_cascade"] = max(errs["merge_cascade"], max_err(torch, got, exp))
         cases += 1
     return errs, cases
 
@@ -416,23 +458,42 @@ def kernel_rows(torch, d, q_lookup, k1, errs, launches):
     rows = []
     check = checker(torch, errs)
 
-    def row(name, source, replaces, ms, plain_ms, library_ms, nbytes, ops):
+    def row(name, source, replaces, ms, plain_ms, library_ms, nbytes, ops, also=()):
         bound_ms, bound_by = bound(nbytes, ops)
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=launches[name], max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, also=list(also)))
 
-    # Merge: every run of the structure, as size() merges them.
+    def cascade_times(kvs, vals, what, iters):
+        """Kernel, plain and library (a stable `torch.sort` of the original
+        keys) times of one cascade merge, and its byte bound."""
+        orig = torch.cat(kvs) >> 1
+        ms = time_ms(torch, lambda: merge_path.merge_cascade_path(kvs, vals), iters=iters)
+        plain = time_ms(torch, lambda: merge_path.merge_cascade_plain(kvs, vals), iters=2)
+        lib = time_ms(torch, lambda: torch.sort(orig, stable=True), iters=iters)
+        return dict(what=what, ms=ms, plain_ms=plain, bound_ms=bound(16 * orig.numel(), 0)[0], library_ms=lib)
+
+    # Merge: every run of the structure, as size() merges them; and one
+    # push_batch of the cascade at b = 2^16 (the carry and levels 0..5 into
+    # level 6: K = 7, 2^22 elements), on runs made like the LSM's.
     check("merge_cascade", lambda: merge_path.merge_cascade_path(kvs, vals),
           lambda: merge_path.merge_cascade_plain(kvs, vals))
-    orig = d.state.arena_kv >> 1
-    ms = time_ms(torch, lambda: merge_path.merge_cascade_path(kvs, vals), iters=3)
-    plain = time_ms(torch, lambda: merge_path.merge_cascade_plain(kvs, vals), iters=2)
-    lib = time_ms(torch, lambda: torch.sort(orig, stable=True), iters=2)
-    del orig
-    searches = sum(n_s * sum(depth(n_t) for t, n_t in enumerate(lens) if t != s) for s, n_s in enumerate(lens))
+    whole = cascade_times(kvs, vals, f"size() merge, {len(kvs)} runs, {total} slots", 3)
+    b = st.buf_sorted_kv.shape[0]
+    push_kv, push_val = [], []
+    for n in [b] + [b << j for j in range(6)]:
+        keys = torch.sort(torch.randint(0, MAX_USER_KEY + 1, (n - n // 4,), device=kvs[0].device,
+                                        dtype=torch.int32)).values
+        push_kv.append(torch.cat([(keys << 1) | (keys & 1), torch.full((n // 4,), PLACEBO_KV, dtype=torch.int32,
+                                                                       device=keys.device)]))
+        push_val.append(torch.arange(n, dtype=torch.int32, device=keys.device))
+    check("merge_cascade", lambda: merge_path.merge_cascade_path(push_kv, push_val),
+          lambda: merge_path.merge_cascade_plain(push_kv, push_val))
+    push = cascade_times(push_kv, push_val, f"push_batch merge, 7 runs, {sum(x.shape[0] for x in push_kv)} slots", 20)
+    del push_kv, push_val
     row("merge_cascade", "src/repro_torch/csrc/merge_cascade.cu", "src/repro/kernels/merge_path.py:263",
-        ms, plain, lib, 16 * total, searches)
+        whole["ms"], whole["plain_ms"], whole["library_ms"], 16 * total, total * (len(kvs) - 1).bit_length(),
+        also=[push])
 
     # Bound: one count/range stage-1 search, the deepest full level against
     # the windows. Bytes: queries and outputs once, and each key the searches
@@ -479,6 +540,7 @@ def kernel_rows(torch, d, q_lookup, k1, errs, launches):
     log(f"  lookup footprint: {probes} probes and checks, {read} distinct elements read of {total}")
     row("fused_lookup", "src/repro_torch/csrc/fused_lookup.cu", "src/repro/kernels/lsm_lookup.py:179",
         ms, plain, None, 12 * nq + 4 * read, probes)
+    log_rows(rows)
     return rows
 
 
@@ -784,43 +846,59 @@ def slice_kernel_rows(torch, device, bulk_keys, bulk_vals, b, capacity, errs, la
         s, order = torch.sort(x, stable=True)
         return s, v[order]
 
-    def rounds(m):
-        return max(0, (m - 1).bit_length() - (bitonic_sort.TILE - 1).bit_length())
-
-    # Block sort at 2^26: the library call is a stable row sort of the tiles.
-    check("bitonic_sort", lambda: bitonic_sort.block_sort(kv, val), lambda: bitonic_sort.block_sort_plain(kv, val))
-    tiles = kv.view(-1, bitonic_sort.TILE)
-    ms = time_ms(torch, lambda: bitonic_sort.block_sort(kv, val))
-    plain = time_ms(torch, lambda: bitonic_sort.block_sort_plain(kv, val))
-    lib = time_ms(torch, lambda: torch.take_along_dim(val.view(-1, bitonic_sort.TILE),
-                                                      torch.sort(tiles, dim=1, stable=True).indices, dim=1))
-    bound_ms, bound_by = bound(16 * n, 0)
+    # The whole sort (tile sort, then its K-way rounds) at 2^26 and at b;
+    # the library call is a stable `torch.sort` plus the value gather. The
+    # bound is the least traffic: each element read and written once.
     whole = []
-    for m in (b, n):
+    for m in (n, b):
         x, v = kv[:m].contiguous(), val[:m].contiguous()
         check("bitonic_sort", lambda: bitonic_sort.bitonic_sort_pairs(x, v), lambda: bitonic_sort.sort_pairs_plain(x, v))
-        whole.append(dict(what=f"sort_pairs whole, n = {m}, block sort + {rounds(m)} merge rounds",
+        whole.append(dict(what=f"sort_pairs whole, n = {m}, block sort + {len(bitonic_sort.merge_rounds(m))} "
+                               f"K-way rounds {bitonic_sort.merge_rounds(m)}",
                           ms=time_ms(torch, lambda: bitonic_sort.bitonic_sort_pairs(x, v)),
                           plain_ms=time_ms(torch, lambda: bitonic_sort.sort_pairs_plain(x, v)),
-                          bound_ms=bound(16 * m * (1 + rounds(m)), 0)[0],
+                          bound_ms=bound(16 * m, 0)[0],
                           library_ms=time_ms(torch, lambda: sort_lib(x, v))))
+    # Its parts at 2^26: the block sort (library: a stable row sort of the
+    # tiles plus the gather) and the first K-way round (library: a stable
+    # `torch.sort` of the array plus the gather).
+    check("bitonic_sort", lambda: bitonic_sort.block_sort(kv, val), lambda: bitonic_sort.block_sort_plain(kv, val))
+    tiles = kv.view(-1, bitonic_sort.TILE)
+    whole.append(dict(what=f"block sort alone, n = {n}",
+                      ms=time_ms(torch, lambda: bitonic_sort.block_sort(kv, val)),
+                      plain_ms=time_ms(torch, lambda: bitonic_sort.block_sort_plain(kv, val)),
+                      bound_ms=bound(16 * n, 0)[0],
+                      library_ms=time_ms(torch, lambda: torch.take_along_dim(
+                          val.view(-1, bitonic_sort.TILE), torch.sort(tiles, dim=1, stable=True).indices, dim=1))))
+    width, k = bitonic_sort.merge_rounds(n)[0]
+    tkv, tval = bitonic_sort.block_sort(kv, val)
+    check("merge_cascade", lambda: merge_path.merge_groups(tkv, tval, width, k, compare_full=True),
+          lambda: merge_path.merge_groups_plain(tkv, tval, width, k, shift=0))
+    whole.append(dict(what=f"first K-way round alone, {k} runs of {width} a group, n = {n}",
+                      ms=time_ms(torch, lambda: merge_path.merge_groups(tkv, tval, width, k, compare_full=True)),
+                      plain_ms=time_ms(torch, lambda: merge_path.merge_groups_plain(tkv, tval, width, k, shift=0),
+                                       iters=2),
+                      bound_ms=bound(16 * n, 0)[0], library_ms=time_ms(torch, lambda: sort_lib(tkv, tval))))
+    del tkv, tval
+    top = whole.pop(0)
     rows = [dict(name="bitonic_sort", route="cuda", source="src/repro_torch/csrc/bitonic_sort.cu",
                  replaces="src/repro/kernels/bitonic_sort.py:74", launches=launches["bitonic_sort"],
-                 max_abs_err=errs["bitonic_sort"], ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
-                 library_ms=lib, also=whole)]
+                 max_abs_err=errs["bitonic_sort"], ms=top["ms"], plain_ms=top["plain_ms"],
+                 bound_ms=top["bound_ms"], bound_by="bytes", library_ms=top["library_ms"], also=whole)]
 
-    # Merge: the last round of the 2^26 sort (two sorted halves), and one SA
-    # merge of a sorted 2^16 batch into a 2^27-slot array; the library call
-    # is a stable sort of the concatenation on the same comparison key.
+    # Merge: two sorted halves of the 2^26 keys, and one SA merge of a sorted
+    # 2^16 batch into a 2^27-slot array; the library call is a stable sort of
+    # the concatenation on the same comparison key.
     half = n // 2
     rkv = torch.cat([torch.sort(kv[:half]).values, torch.sort(kv[half:]).values])
-    check("merge_path", lambda: merge_path.merge_round(rkv, val, half, compare_full=True),
-          lambda: merge_path.merge_round_plain(rkv, val, half, shift=0))
-    ms = time_ms(torch, lambda: merge_path.merge_round(rkv, val, half, compare_full=True))
-    plain = time_ms(torch, lambda: merge_path.merge_round_plain(rkv, val, half, shift=0))
+    halves = (rkv[:half], val[:half], rkv[half:], val[half:])
+    check("merge_path", lambda: merge_path.merge_path(*halves, compare_full=True),
+          lambda: merge_path.merge_path_plain(*halves, shift=0))
+    ms = time_ms(torch, lambda: merge_path.merge_path(*halves, compare_full=True))
+    plain = time_ms(torch, lambda: merge_path.merge_path_plain(*halves, shift=0))
     lib = time_ms(torch, lambda: sort_lib(rkv, val))
     bound_ms, bound_by = bound(16 * n, 0)
-    del rkv
+    del rkv, halves
     a_kv, a_val = bitonic_sort.sort_pairs_plain(kv[:b], val[:b])
     arr_kv, arr_val = torch.full((capacity,), PLACEBO_KV, dtype=torch.int32, device=device), torch.zeros(
         capacity, dtype=torch.int32, device=device)
@@ -839,12 +917,17 @@ def slice_kernel_rows(torch, device, bulk_keys, bulk_vals, b, capacity, errs, la
                      replaces="src/repro/kernels/merge_path.py:117", launches=launches["merge_path"],
                      max_abs_err=errs["merge_path"], ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
                      library_ms=lib, also=[sa]))
-    for r in rows:
-        log(f"phase 5 {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.4f}, "
-            f"torch {r['library_ms']:.4f}); " + "; ".join(
-                f"{a['what']}: {a['ms']:.4f} ms (bound {a['bound_ms']:.4f}, plain {a['plain_ms']:.4f}, "
-                f"torch.sort {a['library_ms']:.4f})" for a in r["also"]))
+    log_rows(rows)
     return rows
+
+
+def log_rows(rows):
+    for r in rows:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"phase 5 {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.4f}, "
+            f"torch {lib}); " + "; ".join(
+                f"{a['what']}: {a['ms']:.4f} ms (bound {a['bound_ms']:.4f}, plain {a['plain_ms']:.4f}, "
+                f"torch {a['library_ms']:.4f})" for a in r["also"]))
 
 
 # ---------------------------------------------------------------------------
@@ -881,8 +964,13 @@ def main() -> int:
     _build.build_all(list(kernels.values()))
     log(f"phase 2 build: {len(kernels)} kernels, {time.perf_counter() - t0:.2f} s")
     for name, k in kernels.items():
-        regs = [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln]
+        regs = [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {name}: {k.library.name} {regs}")
+    occupancy = ctypes.CDLL(str(merge_path.CASCADE_KERNEL.library)).repro_merge_occupancy
+    occupancy.argtypes, occupancy.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    per_sm = ctypes.c_int(0)
+    require(occupancy(ctypes.byref(per_sm)) == 0, "occupancy query failed")
+    log(f"  merge_cascade: {per_sm.value} blocks of the K-way merge per SM")
 
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()

@@ -55,15 +55,18 @@ def _nvcc() -> str:
 
 
 class Kernel:
-    """One CUDA source, its C entry point, and the count of its launches."""
+    """One CUDA source, its C entry point, and the count of its launches.
 
-    def __init__(self, source: str, symbol: str, argtypes):
+    `also` maps further C entries of the source that launch the same kernel
+    (another form of its arguments) to their ctypes argument types; they
+    share the count."""
+
+    def __init__(self, source: str, symbol: str, argtypes, *, also: dict | None = None):
         self.source = CSRC / source
-        self.symbol = symbol
-        self.argtypes = list(argtypes)
+        self.entries = {symbol: list(argtypes), **{name: list(t) for name, t in (also or {}).items()}}
         self.launches = 0
         self.build_log = ""
-        self._fn = None
+        self._fns = None
 
     @property
     def library(self) -> Path:
@@ -97,29 +100,34 @@ class Kernel:
         self._finish_build(*self._start_build())
 
     def _load(self):
-        if self._fn is None:
+        if self._fns is None:
             self.build()
             lib = ctypes.CDLL(str(self.library))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+            fns = {}
+            for name, argtypes in self.entries.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[name] = fn
+            self._fns = fns
+        return self._fns
 
-    def launch(self, device: torch.device, *args) -> None:
-        """Call the C entry on `device`, on PyTorch's current stream of that
-        device; raise on a CUDA error."""
-        fn = self._load()
+    def launch(self, device: torch.device, *args, entry: str | None = None) -> None:
+        """Call a C entry (the first by default) on `device`, on PyTorch's
+        current stream of that device; raise on a CUDA error."""
+        name = entry or next(iter(self.entries))
+        fn = self._load()[name]
         with torch.cuda.device(device):
             err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
-            raise RuntimeError(f"{self.symbol} failed with CUDA error {err}")
+            raise RuntimeError(f"{name} failed with CUDA error {err}")
         self.launches += 1
 
 
 def build_all(kernels) -> None:
     """Build every kernel's library, one nvcc per source, all started together."""
-    started = [(k, *k._start_build()) for k in kernels]
+    by_source = {k.source: k for k in kernels}
+    started = [(k, *k._start_build()) for k in by_source.values()]
     for k, proc, tmp in started:
         k._finish_build(proc, tmp)
     for k in kernels:

@@ -2,17 +2,18 @@
 sort of every direct update and bulk build.
 
 `bitonic_sort_pairs` replaces the Pallas `repro.kernels.bitonic_sort.bitonic_sort_pairs`.
-On CUDA tensors it sorts every 1024-element tile in shared memory
-(`csrc/bitonic_sort.cu`, one launch), then combines the tiles by rounds of
-pairwise Merge Path on the full key variable (`merge_path.merge_round`, one
-launch per round: b = 2^16 takes 6 rounds, 2^26 keys 16), as the Pallas
-version combines its tiles by `merge_path(compare_full=True)`. On CPU tensors
-it runs `sort_pairs_plain`.
+On CUDA tensors it sorts every 4096-element tile in shared memory
+(`csrc/bitonic_sort.cu`, one launch), then combines the tiles in K-way
+rounds on the full key variable: each round is one grouped launch of the
+K-way Merge Path (`merge_path.merge_groups`, up to 32 runs a group), so a
+sort is 1 + ceil(log32(n / 4096)) launches (b = 2^16: 2, 2^26 keys: 4), as
+the Pallas version combines its tiles by `merge_path(compare_full=True)`. On
+CPU tensors it runs `sort_pairs_plain`.
 
 The port's sort is STABLE: it equals `ref.sort_ref` (and the JAX package's
 default `ops.sort_pairs`, `lax.sort(is_stable=True)`) bit for bit. The Pallas
-network is not stable among identical key variables; the block sort here
-orders (kv, lane) and each merge round takes ties from the earlier run. So
+network is not stable among identical key variables; the block sort here is
+a stable merge sort and each merge round takes ties from the earlier run. So
 when a batch holds the same insert twice, the earlier lane's value comes
 first and wins, as on the JAX package's default path. Sorting by the full key
 variable puts a tombstone before every insert of its key (paper §4.1).
@@ -25,9 +26,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import merge_path
-from repro_torch.kernels._build import I64, P, Kernel, check_cuda_int32
+from repro_torch.kernels._build import I64, MAX_RUNS, P, Kernel, check_cuda_int32
 
-TILE = 1024  # elements one block sorts; csrc/bitonic_sort.cu BS_TILE
+TILE = 4096  # elements one block sorts; csrc/bitonic_sort.cu BS_TILE
 
 KERNEL = Kernel(
     "bitonic_sort.cu", "repro_block_sort",
@@ -68,15 +69,26 @@ def block_sort(key_vars, values):
     return out_kv, out_val
 
 
-def sort_by_tiles(key_vars, values):
-    """The tile sort, then merge rounds of doubling width until one run is
-    left. On CPU tensors the same steps run their plain versions."""
-    kv, val = block_sort(key_vars, values)
-    n, width = kv.shape[0], TILE
-    spare = (torch.empty_like(kv), torch.empty_like(val)) if n > width else None
+def merge_rounds(n: int):
+    """(run width, runs per group) of each K-way round that combines the
+    sorted tiles of n elements into one run: 32 runs a group while more than
+    32 are left, then the rest."""
+    rounds, width = [], TILE
     while width < n:
-        spare, (kv, val) = (kv, val), merge_path.merge_round(kv, val, width, compare_full=True, out=spare)
-        width *= 2
+        k = min(MAX_RUNS, -(-n // width))
+        rounds.append((width, k))
+        width *= k
+    return rounds
+
+
+def sort_by_tiles(key_vars, values):
+    """The tile sort, then the K-way merge rounds until one run is left. On
+    CPU tensors the same steps run their plain versions."""
+    kv, val = block_sort(key_vars, values)
+    rounds = merge_rounds(kv.shape[0])
+    spare = (torch.empty_like(kv), torch.empty_like(val)) if rounds else None
+    for width, k in rounds:
+        spare, (kv, val) = (kv, val), merge_path.merge_groups(kv, val, width, k, compare_full=True, out=spare)
     return kv, val
 
 

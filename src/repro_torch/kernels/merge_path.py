@@ -1,15 +1,17 @@
 """Stable merges of sorted runs: the K-way cascade merge and the pairwise
 Merge Path.
 
-`merge_cascade_path` launches the CUDA rank-scatter kernel
-(`csrc/merge_cascade.cu`, replacing the Pallas
-`repro.kernels.merge_path.merge_cascade_path`): the LSM's cascade, cleanup and
-size merge. `merge_path` and `merge_round` launch the CUDA Merge Path kernel
-(`csrc/merge_path.cu`, replacing the Pallas `repro.kernels.merge_path.merge_path`):
-one pair of runs, or every adjacent pair of equal-width runs of one array in
-one launch (a round of the batch sort). On CPU tensors each runs its plain
-version, the same arithmetic in PyTorch. The Hopper kernels take any run
-lengths, so no TPU tiling gate routes a shape elsewhere.
+`merge_cascade_path` and `merge_groups` launch the CUDA K-way Merge Path
+kernel (`csrc/merge_cascade.cu`, replacing the Pallas
+`repro.kernels.merge_path.merge_cascade_path`): up to 32 runs given by
+pointer (the LSM's cascade, cleanup and size merge), or every group of K
+adjacent equal-width runs of one array in one launch (a round of the batch
+sort). `cascade_split` launches the same kernel's K-way split alone.
+`merge_path` launches the CUDA Merge Path kernel (`csrc/merge_path.cu`,
+replacing the Pallas `repro.kernels.merge_path.merge_path`) on one pair of
+runs (the sorted array's merge). On CPU tensors each runs its plain version,
+the same function in PyTorch. The Hopper kernels take any run lengths, so
+no TPU tiling gate routes a shape elsewhere.
 
 Semantics (equal to a left fold of `ref.merge_ref`): runs are given newest
 first and each is ascending in `kv >> shift` (shift 1 compares original keys,
@@ -20,11 +22,17 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._build import I32, I64, P, Kernel, check_cuda_int32, run_pointers
+from repro_torch.kernels._build import I32, I64, MAX_RUNS, P, Kernel, check_cuda_int32, run_pointers
 
 CASCADE_KERNEL = Kernel(
     "merge_cascade.cu", "repro_merge_cascade",
     [P, P, P, I32, I32, P, P, P],  # kv[], val[], n[], k, shift, out_kv, out_val, stream
+    # kv, val, total, w, k, shift, out_kv, out_val, stream
+    also={"repro_merge_groups": [P, P, I64, I64, I32, I32, P, P, P]},
+)
+SPLIT_KERNEL = Kernel(
+    "merge_cascade.cu", "repro_cascade_split",
+    [P, P, I32, I32, P, I64, P, P],  # kv[], n[], k, shift, diags, nd, out, stream
 )
 PATH_KERNEL = Kernel(
     "merge_path.cu", "repro_merge_path",
@@ -44,8 +52,8 @@ def _outputs(n: int, device, out):
 
 
 def merge_cascade_plain(runs_kv, runs_val, *, shift: int = 1, out=None):
-    """The kernel's rank scatter in PyTorch: element i of run s lands at
-    i + sum over newer runs of upper_bound + sum over older runs of lower_bound."""
+    """The K-way merge as a rank scatter in PyTorch: element i of run s lands
+    at i + sum over newer runs of upper_bound + sum over older runs of lower_bound."""
     total = sum(kv.shape[0] for kv in runs_kv)
     device = runs_kv[0].device
     out_kv, out_val = _outputs(total, device, out)
@@ -79,6 +87,80 @@ def merge_cascade_path(runs_kv, runs_val, *, compare_full: bool = False, out=Non
     return out
 
 
+def merge_groups_plain(kv, val, width: int, k: int, *, shift: int, out=None):
+    """Every group of k adjacent width-`width` runs of (kv, val), each run
+    sorted, merged into the same span of `out`; the last group may be short
+    or have fewer runs. Within a group the runs lie in run order, so the
+    merge is a stable sort by (group, kv >> shift)."""
+    n = kv.shape[0]
+    out_kv, out_val = _outputs(n, kv.device, out)
+    group = torch.arange(n, device=kv.device) // (k * width)
+    order = torch.sort((group << 32) + ((kv.to(torch.int64) >> shift) + (1 << 31)), stable=True).indices
+    out_kv.copy_(kv[order])
+    out_val.copy_(val[order])
+    return out_kv, out_val
+
+
+def merge_groups(kv, val, width: int, k: int, *, compare_full: bool = False, out=None):
+    """One merge round: runs [(g*k + s) * width, (g*k + s + 1) * width) of
+    (kv, val), s < k, each sorted, the earlier newer, merge into the same
+    span of `out`, for every group g, in one launch. `out` must not overlap
+    the input."""
+    if width < 1 or not 1 <= k <= MAX_RUNS:
+        raise ValueError(f"need width >= 1 and 1 <= k <= {MAX_RUNS}, got {width} and {k}")
+    shift = 0 if compare_full else 1
+    if kv.device.type == "cpu":
+        return merge_groups_plain(kv, val, width, k, shift=shift, out=out)
+    n = kv.shape[0]
+    out = _outputs(n, kv.device, out)
+    device = check_cuda_int32("merge_groups", kv, val, *out)
+    if val.shape[0] != n:
+        raise ValueError("merge_groups: kv and val lengths differ")
+    if n:
+        CASCADE_KERNEL.launch(device, kv.data_ptr(), val.data_ptr(), n, width, k, shift,
+                              out[0].data_ptr(), out[1].data_ptr(), entry="repro_merge_groups")
+    return out
+
+
+def cascade_split_plain(runs_kv, diags, *, shift: int = 1):
+    """The K-way Merge Path split -> int64 [K, len(diags)]: element [s, q] is
+    the number of elements of run s among the first diags[q] outputs of the
+    merge. As the kernel (and `repro.kernels.merge_path.cascade_partition`)
+    computes it: the smallest key k* with sum_s upper_bound_s(k*) >= d, by
+    bisection over the int32 keys, then every element below k* and the rest
+    of d from the key == k* segments in run order."""
+    keys = [kv.to(torch.int64) >> shift for kv in runs_kv]
+    d = diags.to(torch.int64)
+    lo, hi = torch.full_like(d, -(1 << 31)), torch.full_like(d, (1 << 31) - 1)
+    for _ in range(32):
+        mid = lo + (hi - lo) // 2
+        pred = sum(torch.searchsorted(ks, mid, right=True) for ks in keys) >= d
+        hi, lo = torch.where(pred, mid, hi), torch.where(pred, lo, mid + 1)
+    lbs = [torch.searchsorted(ks, lo) for ks in keys]
+    segs = [torch.searchsorted(ks, lo, right=True) - lb for ks, lb in zip(keys, lbs)]
+    rest = d - sum(lbs)
+    bounds = []
+    for lb, seg in zip(lbs, segs):
+        bounds.append(lb + torch.minimum(rest.clamp(min=0), seg))
+        rest = rest - seg
+    return torch.stack(bounds)
+
+
+def cascade_split(runs_kv, diags, *, compare_full: bool = False):
+    """The kernel's K-way split alone, one warp per diagonal -> int64
+    [K, len(diags)] (see `cascade_split_plain`); `diags` is int64."""
+    shift = 0 if compare_full else 1
+    if runs_kv[0].device.type == "cpu":
+        return cascade_split_plain(runs_kv, diags, shift=shift)
+    device = check_cuda_int32("cascade_split", *runs_kv)
+    if diags.dtype != torch.int64 or diags.device != device or not diags.is_contiguous():
+        raise ValueError("cascade_split: diags must be contiguous int64 on the runs' device")
+    kvp, _, n = run_pointers(runs_kv, runs_kv)
+    out = torch.empty((len(runs_kv), diags.shape[0]), dtype=torch.int64, device=device)
+    SPLIT_KERNEL.launch(device, kvp, n, len(runs_kv), shift, diags.data_ptr(), diags.shape[0], out.data_ptr())
+    return out
+
+
 def merge_path_plain(a_kv, a_val, b_kv, b_val, *, shift: int = 1, out=None):
     """`ref.merge_ref`'s rank formula with `shift`: a[i] lands at
     i + |{j : b[j] < a[i]}|, b[j] at j + |{i : a[i] <= b[j]}|."""
@@ -108,41 +190,5 @@ def merge_path(a_kv, a_val, b_kv, b_val, *, compare_full: bool = False, out=None
         PATH_KERNEL.launch(
             device, a_kv.data_ptr(), a_val.data_ptr(), 0, na, na,
             b_kv.data_ptr(), b_val.data_ptr(), 0, nb, nb, 1, shift, out[0].data_ptr(), out[1].data_ptr(),
-        )
-    return out
-
-
-def merge_round_plain(kv, val, width: int, *, shift: int, out=None):
-    """Every adjacent pair of width-`width` runs of (kv, val), merged in
-    place in `out`; the last pair may be short or have no `b` run."""
-    n = kv.shape[0]
-    out_kv, out_val = _outputs(n, kv.device, out)
-    for s in range(0, n, 2 * width):
-        m, e = min(s + width, n), min(s + 2 * width, n)
-        merge_path_plain(kv[s:m], val[s:m], kv[m:e], val[m:e], shift=shift,
-                         out=(out_kv[s:e], out_val[s:e]))
-    return out_kv, out_val
-
-
-def merge_round(kv, val, width: int, *, compare_full: bool = False, out=None):
-    """One merge round: runs [2p*w, (2p+1)*w) and [(2p+1)*w, (2p+2)*w) of
-    (kv, val), each sorted, merge into the same span of `out`, for every p,
-    in one launch. `out` must not overlap the input."""
-    if width < 1:
-        raise ValueError(f"run width must be >= 1, got {width}")
-    shift = 0 if compare_full else 1
-    if kv.device.type == "cpu":
-        return merge_round_plain(kv, val, width, shift=shift, out=out)
-    n = kv.shape[0]
-    out = _outputs(n, kv.device, out)
-    device = check_cuda_int32("merge_round", kv, val, *out)
-    if val.shape[0] != n:
-        raise ValueError("merge_round: kv and val lengths differ")
-    if n:
-        # `b` of pair p starts `width` elements after its `a`: 4 bytes each.
-        PATH_KERNEL.launch(
-            device, kv.data_ptr(), val.data_ptr(), 2 * width, n, width,
-            kv.data_ptr() + 4 * width, val.data_ptr() + 4 * width, 2 * width, max(n - width, 0), width,
-            -(-n // (2 * width)), shift, out[0].data_ptr(), out[1].data_ptr(),
         )
     return out

@@ -103,13 +103,64 @@ def test_cuda_merge_path_matches_plain(cuda, na, nb):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,width", [(5, 8), (13, 4), (3000, 1024), (5000, 1024), (1 << 16, 1 << 15)])
-def test_cuda_merge_round_matches_plain(cuda, n, width):
+@pytest.mark.parametrize("n,width,k", [(5, 8, 2), (13, 4, 3), (3000, 1024, 2), (5000, 1024, 32),
+                                       ((1 << 16) + 77, 4096, 5), (40, 5, 1)])
+def test_cuda_merge_groups_matches_plain(cuda, n, width, k):
     kv, val = map(t, sort_case(n, n, 50))
     for s in range(0, n, width):  # each run sorted by the full key variable
         order = torch.sort(kv[s:s + width], stable=True).indices
         kv[s:s + width], val[s:s + width] = kv[s:s + width][order], val[s:s + width][order]
-    got = merge_path.merge_round(kv.to(cuda), val.to(cuda), width, compare_full=True)
-    exp = merge_path.merge_round(kv, val, width, compare_full=True)
+    got = merge_path.merge_groups(kv.to(cuda), val.to(cuda), width, k, compare_full=True)
+    exp = merge_path.merge_groups(kv, val, width, k, compare_full=True)
     eq(got[0].cpu(), exp[0])
     eq(got[1].cpu(), exp[1])
+
+
+# Tie-heavy K-way cases: K runs of all-equal keys spanning many 4096-element
+# tiles; LSM levels with placebo tails and all-placebo levels; K = 1.
+KWAY_CASES = [
+    ("equal", [5000] * 32), ("equal", [1, 0, 9000, 3, 4096, 4097]),
+    ("placebo", [1 << 10] + [1 << (10 + i) for i in range(12)]), ("random", [0]), ("random", [12345]),
+    ("random", [3, 0, 1, 70000, 5, 4095, 4097, 1 << 15, 0, 2, 6, 8, 1]),
+]
+
+
+def kway_runs(kind, lengths, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "equal":
+        return [sorted_run(rng, n, 1) for n in lengths]
+    if kind == "placebo":
+        return [sorted_run(rng, n, 1 << 20, placebo_tail=n if s % 4 == 3 else n // 3)
+                for s, n in enumerate(lengths)]
+    return [sorted_run(rng, n, 1 << 12, placebo_tail=n // 5) for n in lengths]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(KWAY_CASES)))
+def test_cuda_kway_merge_tie_cases_match_plain(cuda, case):
+    kind, lengths = KWAY_CASES[case]
+    runs = kway_runs(kind, lengths, case)
+    for compare_full in (False, True):
+        if compare_full:
+            runs = [(np.sort(kv), v) for kv, v in runs]
+        kvs, vals = [t(kv) for kv, _ in runs], [t(v) for _, v in runs]
+        got = merge_path.merge_cascade_path([x.to(cuda) for x in kvs], [x.to(cuda) for x in vals],
+                                            compare_full=compare_full)
+        exp = merge_path.merge_cascade_plain(kvs, vals, shift=0 if compare_full else 1)
+        eq(got[0].cpu(), exp[0])
+        eq(got[1].cpu(), exp[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(KWAY_CASES)))
+def test_cuda_cascade_split_matches_plain(cuda, case):
+    kind, lengths = KWAY_CASES[case]
+    kvs = [t(kv) for kv, _ in kway_runs(kind, lengths, case)]
+    total = sum(lengths)
+    diags = torch.cat([torch.arange(0, total + 1, 4096), torch.arange(0, total + 1, 997), torch.tensor([total])])
+    for compare_full in (False, True):
+        if compare_full:  # runs sorted by the full key variable
+            kvs = [torch.sort(x).values for x in kvs]
+        got = merge_path.cascade_split([x.to(cuda) for x in kvs], diags.to(cuda), compare_full=compare_full)
+        exp = merge_path.cascade_split_plain(kvs, diags, shift=0 if compare_full else 1)
+        eq(got.cpu(), exp)

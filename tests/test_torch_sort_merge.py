@@ -32,14 +32,14 @@ def assert_pairs(got, exp):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("n", [1, 7, 8, 64, 1000, 1024, 2048, 4096, 3000])
+@pytest.mark.parametrize("n", [1, 7, 8, 64, 1000, 4096, 8192, 16384, 9000])
 @pytest.mark.parametrize("key_hi", [4, 1 << 16, 1 << 30])
 def test_sort_matches_sort_ref(n, key_hi):
     kv, val = sort_case(n + key_hi, n, key_hi)
     exp = jref.sort_ref(jnp.asarray(kv), jnp.asarray(val))
     assert_pairs(ops.sort_pairs(t(kv), t(val)), exp)
     assert_pairs(ref.sort_ref(t(kv), t(val)), exp)
-    # The card's steps: 1024-element tile sorts, then merge rounds.
+    # The card's steps: 4096-element tile sorts, then K-way merge rounds.
     assert_pairs(bitonic_sort.sort_by_tiles(t(kv), t(val)), exp)
 
 
@@ -66,7 +66,7 @@ def test_sort_matches_pallas_interpret(n):
     assert got_pairs == exp_pairs
 
 
-@pytest.mark.parametrize("n", [0, 1, 1000, 1024, 2500])
+@pytest.mark.parametrize("n", [0, 1, 4000, 4096, 10000])
 def test_block_sort_sorts_each_tile(n):
     kv, val = sort_case(n, n, 9)
     got_kv, got_val = bitonic_sort.block_sort(t(kv), t(val))
@@ -126,18 +126,18 @@ def test_merge_writes_out():
         merge_path.merge_path(t(a), t(av), t(b), t(bv), out=(out[0][:5], out[1][:5]))
 
 
-@pytest.mark.parametrize("n,width", [(0, 4), (5, 8), (8, 4), (13, 4), (3000, 1024), (4096, 1024)])
+@pytest.mark.parametrize("n,width,k", [(0, 4, 2), (5, 8, 2), (8, 4, 2), (13, 4, 3), (3000, 1024, 2), (4096, 1024, 4)])
 @pytest.mark.parametrize("compare_full", [False, True])
-def test_merge_round_merges_adjacent_pairs(n, width, compare_full):
+def test_merge_groups_merges_adjacent_groups(n, width, k, compare_full):
     rng = np.random.default_rng(n + width)
     kv = (rng.integers(0, 20, n) << 1 | (rng.random(n) < 0.5)).astype(np.int32)
     shift = 0 if compare_full else 1
     for s in range(0, n, width):  # runs of `width`, each sorted by kv >> shift
         kv[s:s + width] = kv[s:s + width][np.argsort(kv[s:s + width] >> shift, kind="stable")]
     val = np.arange(n, dtype=np.int32)
-    got = merge_path.merge_round(t(kv), t(val), width, compare_full=compare_full)
-    for s in range(0, n, 2 * width):
-        m, e = min(s + width, n), min(s + 2 * width, n)
-        exp = stable_merge_np(kv[s:m], val[s:m], kv[m:e], val[m:e], shift)
-        eq(got[0][s:e], exp[0])
-        eq(got[1][s:e], exp[1])
+    got = merge_path.merge_groups(t(kv), t(val), width, k, compare_full=compare_full)
+    for g in range(0, n, k * width):  # a stable sort of the group, earlier runs first
+        e = min(g + k * width, n)
+        order = np.argsort(kv[g:e] >> shift, kind="stable")
+        eq(got[0][g:e], kv[g:e][order])
+        eq(got[1][g:e], val[g:e][order])

@@ -29,7 +29,7 @@ def sorted_run(rng, n, key_hi, tomb_frac=0.3, placebo_tail=0):
     return kv, val
 
 
-SORT_NS = [0, 1, 7, 8, 1000, 1024, 1025, 3000, 4096]
+SORT_NS = [0, 1, 7, 8, 1000, 4096, 4097, 3000, 16384]
 PAIR_LENGTHS = [0, 1, 255, 256, 257]  # each side of a pairwise merge on the card
 
 
