@@ -11,7 +11,11 @@ Phases, one line each with its seconds:
      equality, at the main path's sizes and at edge cases (for the K-way
      merge: tie-heavy runs across many tiles, LSM placebo tails, K = 1,
      grouped rounds with a ragged last group, and its split launcher at
-     every tile boundary of an LSM-shaped case);
+     every tile boundary of an LSM-shaped case; for the bound kernel: runs
+     of 0, 1, 3 and 2^k +- 1 keys with long placebo segments, and count/range
+     stage 1 over 13 runs with an empty buffer run and windows with k1 > k2;
+     for Merge Path: edge lengths, windows, inputs and outputs off a 16-byte
+     boundary, and its split launcher at every tile boundary);
   4. the main path through the `Dictionary` facade at the paper's Table 2
      scale (n = 2^27 resident elements, b = 2^16, L = 12): fill by inserts,
      delete, re-insert, flush, lookup, count, range, maintain, cleanup, size,
@@ -19,10 +23,14 @@ Phases, one line each with its seconds:
      and every kernel's launch count moved;
   5. each kernel's time at the main path's shapes beside its bound, its plain
      version's time and a PyTorch library call's, as one `kernels` JSON line
-     (the cascade merge also at one push_batch shape; the rows of the batch
-     sort, timed as the whole function with its block sort and first K-way
-     round beside it, and of the pairwise merge are timed after phase 6, on
-     its data);
+     (the cascade merge also at one push_batch shape; the bound kernel also
+     device only, from a replayed CUDA graph, and as count/range stage 1 in
+     one launch beside 26 library searches and 26 single-run launches; the
+     rows of the batch sort, timed as the whole function with its block sort
+     and first K-way round beside it, and of the pairwise merge, with its
+     split and merge passes apart, are timed after phase 6, on its data);
+     the host microseconds of one kernel launch, and profiles of one count
+     call, one insert call and direct update batches;
   6. the paper-exact update path, bulk build and the sorted-array baseline
      at full width (phase 4's dictionary freed first): an LSM of capacity
      2^27 (b = 2^16, L = 12) bulk-built from 2^26 unique keys, then 1024
@@ -55,6 +63,7 @@ MAX_USER_KEY = (1 << 30) - 2
 PLACEBO_KEY = (1 << 30) - 1
 PLACEBO_KV = PLACEBO_KEY << 1
 INT32_MAX = (1 << 31) - 1
+EDGE_KEYS = [0, 1, MAX_USER_KEY, PLACEBO_KEY, INT32_MAX, -1]
 
 # Published H100 SXM peaks: HBM bytes/s, and the non-tensor fp32 rate standing
 # in for int32 compares (NVIDIA's datasheet lists no int32 rate; fp32's is the
@@ -170,17 +179,38 @@ def check_kernels(torch, device, rng):
     cases += 1
     del kvs, vals, tie_cases
 
+    # Bound: one 2^26 run at full width; edge lengths (0, 1, 3, 2^k +- 1)
+    # with few keys and a long placebo tail; then count/range stage 1 in one
+    # launch over 13 runs (an empty buffer run, every fourth level all
+    # placebos), windows with k1 > k2 and the edge keys.
     kv, _ = sorted_run(rng, 1 << 26, MAX_USER_KEY + 1)
     q = np.concatenate([rng.integers(0, MAX_USER_KEY + 1, (1 << 20) - 4),
                         [0, MAX_USER_KEY, PLACEBO_KEY, INT32_MAX]]).astype(np.int32)
-    kv_d, q_d = dev_tensor(torch, kv, device), dev_tensor(torch, q, device)
-    for upper in (False, True):
-        got = lsm_lookup.bound(kv_d, q_d, shift=1, upper=upper)
-        exp = lsm_lookup.search_plain(kv_d, q_d, shift=1, upper=upper).to(torch.int32)
+    cases_b = [(kv, q)]
+    for n in (0, 1, 3, 31, 33, 4095, 4097, (1 << 16) + 1):
+        cases_b.append((sorted_run(rng, n, 5, placebo_frac=0.4)[0],
+                        np.concatenate([rng.integers(-1, 7, 999), EDGE_KEYS]).astype(np.int32)))
+    for kv, q in cases_b:
+        kv_d, q_d = dev_tensor(torch, kv, device), dev_tensor(torch, q, device)
+        for upper in (False, True):
+            got = lsm_lookup.bound(kv_d, q_d, shift=1, upper=upper)
+            exp = lsm_lookup.search_plain(kv_d, q_d, shift=1, upper=upper).to(torch.int32)
+            torch.cuda.synchronize()
+            errs["bound"] = max(errs["bound"], max_err(torch, [got], [exp]))
+            cases += 1
+    del kv_d, cases_b
+    for key_hi in (4, 1 << 22):
+        runs = [sorted_run(rng, n, key_hi, placebo_frac=1.0 if s % 4 == 3 else 0.25)[0]
+                for s, n in enumerate([0] + [(1 << 10) << i for i in range(12)])]
+        k1 = np.concatenate([rng.integers(-1, key_hi + 2, (1 << 16) - 6), EDGE_KEYS]).astype(np.int64)
+        k2 = np.clip(k1 + rng.integers(-8, 1 << 10, k1.size), -INT32_MAX - 1, INT32_MAX).astype(np.int32)
+        kvs = [dev_tensor(torch, kv, device) for kv in runs]
+        k1_d, k2_d = dev_tensor(torch, k1.astype(np.int32), device), dev_tensor(torch, k2, device)
+        got = lsm_lookup.bounds_runs(kvs, k1_d, k2_d)
+        exp = lsm_lookup.bounds_runs_plain(kvs, k1_d, k2_d)
         torch.cuda.synchronize()
-        errs["bound"] = max(errs["bound"], max_err(torch, [got], [exp]))
+        errs["bound"] = max(errs["bound"], max_err(torch, got, exp))
         cases += 1
-    del kv_d
 
     b = 1 << 12  # 13 runs (buffer + 12 levels), 2^24 elements
     runs = [sorted_run(rng, n, 1 << 22) for n in [b] + [b << i for i in range(12)]]
@@ -210,19 +240,43 @@ def check_kernels(torch, device, rng):
             errs["bitonic_sort"] = max(errs["bitonic_sort"], max_err(torch, got, exp))
             cases += 1
 
-    # Pairwise merge: every pair of edge lengths and one large pair, both
-    # compare modes.
-    lengths = [(na, nb) for na in (0, 1, 255, 256, 257) for nb in (0, 1, 255, 256, 257)]
-    for na, nb in lengths + [(1 << 16, 1 << 20), (1 << 20, 1 << 16)]:
+    # Pairwise merge: every pair of edge lengths (0, 1, 3, 2^k +- 1 and one
+    # merge tile +- 1), one large pair and the sorted array's shape (a tiny
+    # `a`, a long `b` with a placebo tail), both compare modes; inputs at
+    # the start of their storage and 1-3 elements into it (windows and bases
+    # off a 16-byte boundary), a fresh output and a caller's output 1
+    # element into its storage. Then the split kernel alone at every tile
+    # boundary and every 7th diagonal.
+    tile = merge_path.path_tile()
+    edges = (0, 1, 3, 255, 257, tile - 1, tile + 1)
+    pairs = [(na, nb) for na in edges for nb in edges] + [(1 << 16, 1 << 20), (1 << 20, 1 << 16), (64, 1 << 22)]
+
+    def at_offset(a, k):
+        return torch.cat([torch.zeros(k, dtype=torch.int32, device=device), dev_tensor(torch, a, device)])[k:]
+
+    for c, (na, nb) in enumerate(pairs):
         for full in (False, True):
-            runs = [sorted_run(rng, m, 300) for m in (na, nb)]
+            key_hi = 1 if c % 3 == 0 else 300  # one key everywhere: ties across whole tiles
+            runs = [sorted_run(rng, m, key_hi, placebo_frac=0.5 if m == nb else 0.25) for m in (na, nb)]
             if full:
                 runs = [(np.sort(kv), v) for kv, v in runs]
-            args = [dev_tensor(torch, a, device) for run in runs for a in run]
-            got = merge_path.merge_path(*args, compare_full=full)
+            args = [at_offset(a, c % 4) for run in runs for a in run]
             exp = merge_path.merge_path_plain(*args, shift=0 if full else 1)
+            out = [torch.empty(na + nb + 1, dtype=torch.int32, device=device)[1:] for _ in range(2)]
+            for o in (None, out):
+                got = merge_path.merge_path(*args, compare_full=full, out=o)
+                torch.cuda.synchronize()
+                errs["merge_path"] = max(errs["merge_path"], max_err(torch, got, exp))
+                cases += 1
+            a_kv, b_kv = args[0], args[2]
+            n = na + nb
+            diags = torch.cat([torch.arange(0, n + 1, tile, device=device), torch.arange(0, n + 1, 7, device=device),
+                               torch.tensor([n], device=device)])
+            shift = 0 if full else 1
+            got = merge_path.merge_split(a_kv, b_kv, diags, compare_full=full)
+            exp = merge_path.merge_split_plain(a_kv >> shift, b_kv >> shift, diags)
             torch.cuda.synchronize()
-            errs["merge_path"] = max(errs["merge_path"], max_err(torch, got, exp))
+            errs["merge_path"] = max(errs["merge_path"], max_err(torch, [got], [exp]))
             cases += 1
     # Grouped K-way merges on the full key variable (the sort's rounds), the
     # last group short and with fewer runs.
@@ -406,15 +460,96 @@ def time_ms(torch, fn, iters=5):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fn, launches=20, reps=10):
+    """Device-only time of one `fn()`: `launches` calls captured in one CUDA
+    graph, the graph replayed `reps` times between two CUDA events, so no
+    host time falls between the kernels."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (launches * reps)
+
+
+def kernel_ms(torch, fn, names, reps=5):
+    """Device time per call of each kernel whose name contains one of
+    `names`, from `reps` calls of `fn` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = {name: 0.0 for name in names}
+    for e in prof.key_averages():
+        for name in names:
+            if e.device_type.name == "CUDA" and name in e.key:
+                times[name] += e.self_device_time_total / 1e3 / reps
+    return times
+
+
+def launch_host_us(torch, device, runs):
+    """Host microseconds per call of the bound kernel's launch path, this
+    tree's `Kernel.launch` against the path it replaced (the device made
+    current and `torch.cuda.current_stream` read on every launch), in turns;
+    and of the whole `lsm_lookup.bound` and `bounds_runs` wrappers (on
+    `runs`). Each with 32 queries, so the card keeps up with the host."""
+    from repro_torch.kernels import lsm_lookup
+
+    kernel = lsm_lookup.BOUND_KERNEL
+    keys = torch.arange(0, 8192, 2, dtype=torch.int32, device=device)
+    q = torch.arange(0, 32, dtype=torch.int32, device=device)
+    out = torch.empty(32, dtype=torch.int32, device=device)
+    args = (keys.data_ptr(), keys.numel(), q.data_ptr(), 32, 1, 0, out.data_ptr())
+    fn = kernel._load()["repro_bound"]
+
+    def replaced():
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        require(err == 0, "launch failed")
+
+    paths = {"replaced": replaced, "launch": lambda: kernel.launch(device, *args),
+             "bound wrapper": lambda: lsm_lookup.bound(keys, q),
+             f"bounds_runs wrapper ({len(runs)} runs)": lambda: lsm_lookup.bounds_runs(runs, q, q)}
+    us = {name: [] for name in paths}
+    for _ in range(2):
+        for name, call in paths.items():
+            for _ in range(200):
+                call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5000):
+                call()
+            us[name].append((time.perf_counter() - t0) / 5000 * 1e6)
+            torch.cuda.synchronize()
+    return us
+
+
 def depth(n: int) -> int:
     """Probes of one binary search over n keys."""
     return n.bit_length()
 
 
-def search_footprint(torch, kv, q, active):
-    """Replay the kernels' lower-bound search on original keys (csrc/common.cuh
-    repro_search, shift 1) for the `active` queries. Returns the bounds, a mask
-    of the keys the searches read, and the number of probes."""
+def search_footprint(torch, kv, q, active, upper=False):
+    """Replay a binary search (csrc/common.cuh repro_search: the fewest keys a
+    comparison search reads) of the lower bound (or upper bound) on original
+    keys for the `active` queries. Returns the bounds, a mask of the keys the
+    searches read, and the number of probes."""
     n = kv.shape[0]
     seen = torch.zeros(n, dtype=torch.bool, device=kv.device)
     lo = torch.zeros(q.shape, dtype=torch.int64, device=kv.device)
@@ -425,7 +560,8 @@ def search_footprint(torch, kv, q, active):
         mid = lo + ((hi - lo) >> 1)
         seen[mid[live]] = True
         probes += live.sum()
-        right = (kv[mid.clamp(max=n - 1)] >> 1) < q
+        v = kv[mid.clamp(max=n - 1)] >> 1
+        right = v <= q if upper else v < q
         lo = torch.where(live & right, mid + 1, lo)
         hi = torch.where(live & ~right, mid, hi)
     return lo, seen, int(probes)
@@ -495,23 +631,80 @@ def kernel_rows(torch, d, q_lookup, k1, errs, launches):
         whole["ms"], whole["plain_ms"], whole["library_ms"], 16 * total, total * (len(kvs) - 1).bit_length(),
         also=[push])
 
-    # Bound: one count/range stage-1 search, the deepest full level against
-    # the windows. Bytes: queries and outputs once, and each key the searches
-    # read once (the levels of the search tree that all queries share count once).
+    # Bound: count/range stage 1 as the main path runs it, one `bounds_runs`
+    # launch: every run, the lower bound of k1 and the upper bound of
+    # k2 = k1 + 1023 (library: 26 `torch.searchsorted`). Bytes: k1, k2 and
+    # both outputs once, and each distinct key the binary searches of a run
+    # read once (a key that both ends' searches read counts once: the top of
+    # each run's search tree). Beside it, the same device only (a replayed
+    # graph), the 26 single-run launches that stage 1 made before (`bound`
+    # per run and end), and one single-run search (`bound`, the deepest full
+    # level against the windows, the row's shape before).
     require(st.r > 0, "no full level to search")
-    level, nq = st.key_vars[st.r.bit_length() - 1], k1.shape[0]
+    nq = k1.shape[0]
+    k2 = k1 + 1023
+    check("bound", lambda: lsm_lookup.bounds_runs(kvs, k1, k2), lambda: lsm_lookup.bounds_runs_plain(kvs, k1, k2))
+    origs = [kv >> 1 for kv in kvs]
+
+    def library_stage1():
+        for o in origs:
+            torch.searchsorted(o, k1)
+            torch.searchsorted(o, k2, right=True)
+
+    def per_run_stage1():
+        for kv in kvs:
+            lsm_lookup.bound(kv, k1)
+            lsm_lookup.bound(kv, k2, upper=True)
+
+    everyone = torch.ones_like(k1, dtype=torch.bool)
+    lows, highs = lsm_lookup.bounds_runs(kvs, k1, k2)
+    read = probes = 0
+    for j, kv in enumerate(kvs):
+        if kv.shape[0]:
+            lo, seen_lo, p_lo = search_footprint(torch, kv, k1, everyone)
+            hi, seen_hi, p_hi = search_footprint(torch, kv, k2, everyone, upper=True)
+            require(torch.equal(lo.to(torch.int32), lows[j]) and torch.equal(hi.to(torch.int32), highs[j]),
+                    "stage 1 footprint replay differs")
+            read, probes = read + int((seen_lo | seen_hi).sum()), probes + p_lo + p_hi
+    log(f"  stage 1 footprint: {probes} probes, {read} distinct keys read of {total}")
+    stage1_args = (8 * nq + 8 * len(kvs) * nq + 4 * read, probes)
+    ms = time_ms(torch, lambda: lsm_lookup.bounds_runs(kvs, k1, k2), iters=20)
+    plain = time_ms(torch, lambda: lsm_lookup.bounds_runs_plain(kvs, k1, k2), iters=2)
+    lib = time_ms(torch, library_stage1, iters=5)
+    stage1_device = dict(what=f"stage 1 device only: bounds_runs, {len(kvs)} runs, {nq} windows, both ends "
+                              f"(graph of 20 launches; library: {2 * len(kvs)} torch.searchsorted, graph of 2 stages)",
+                         ms=graph_ms(torch, lambda: lsm_lookup.bounds_runs(kvs, k1, k2)),
+                         bound_ms=bound(*stage1_args)[0], library_ms=graph_ms(torch, library_stage1, launches=2))
+    per_run = dict(what=f"stage 1 as {2 * len(kvs)} single-run bound launches (before this design), "
+                        "back to back and device only (graph of 2 stages)",
+                   ms=time_ms(torch, per_run_stage1, iters=5),
+                   device_ms=graph_ms(torch, per_run_stage1, launches=2), bound_ms=bound(*stage1_args)[0])
+    log(f"  stage 1: one bounds_runs launch {ms:.4f} ms back to back, {stage1_device['ms']:.4f} device "
+        f"only; {2 * len(kvs)} torch.searchsorted {lib:.4f} / {stage1_device['library_ms']:.4f}; "
+        f"{2 * len(kvs)} single-run bound launches {per_run['ms']:.4f} / {per_run['device_ms']:.4f}")
+
+    level = st.key_vars[st.r.bit_length() - 1]
     level_orig = level >> 1
     check("bound", lambda: [lsm_lookup.bound(level, k1)],
           lambda: [lsm_lookup.search_plain(level, k1, shift=1, upper=False)])
-    ms = time_ms(torch, lambda: lsm_lookup.bound(level, k1), iters=20)
-    plain = time_ms(torch, lambda: lsm_lookup.search_plain(level, k1, shift=1, upper=False), iters=5)
-    lib = time_ms(torch, lambda: torch.searchsorted(level_orig, k1), iters=20)
-    idx, seen, probes = search_footprint(torch, level, k1, torch.ones_like(k1, dtype=torch.bool))
+    idx, seen, p = search_footprint(torch, level, k1, everyone)
     require(torch.equal(idx.to(torch.int32), lsm_lookup.bound(level, k1)), "bound footprint replay differs")
-    keys_read = int(seen.sum())
-    log(f"  bound footprint: {probes} probes, {keys_read} distinct keys read of {level.shape[0]}")
+    log(f"  single-run bound footprint: {p} probes, {int(seen.sum())} distinct keys read of {level.shape[0]}")
+    one_run_bound = bound(8 * nq + 4 * int(seen.sum()), p)[0]
+    one_run = dict(what=f"one run of {level.shape[0]} (the deepest full level), {nq} queries, lower bound: "
+                        "back to back, and device only (graph of 20 launches)",
+                   ms=time_ms(torch, lambda: lsm_lookup.bound(level, k1), iters=20),
+                   device_ms=graph_ms(torch, lambda: lsm_lookup.bound(level, k1)),
+                   plain_ms=time_ms(torch, lambda: lsm_lookup.search_plain(level, k1, shift=1, upper=False),
+                                    iters=5),
+                   bound_ms=one_run_bound,
+                   library_ms=time_ms(torch, lambda: torch.searchsorted(level_orig, k1), iters=20),
+                   library_device_ms=graph_ms(torch, lambda: torch.searchsorted(level_orig, k1)))
     row("bound", "src/repro_torch/csrc/bounds.cu", "src/repro/kernels/lsm_lookup.py:88",
-        ms, plain, lib, 8 * nq + 4 * keys_read, probes)
+        ms, plain, lib, *stage1_args, also=[stage1_device, per_run, one_run])
+    us = launch_host_us(torch, level.device, kvs)
+    log("  launch path, host us per call (two turns each): " + "; ".join(
+        f"{name} {', '.join(f'{x:.2f}' for x in v)}" for name, v in us.items()))
 
     # Lookup: the lookup queries against every run, newest first; a query
     # stops at the first run holding its key. Bytes: queries and both outputs
@@ -544,9 +737,10 @@ def kernel_rows(torch, d, q_lookup, k1, errs, launches):
     return rows
 
 
-def profile(torch, what, fn):
+def profile(torch, what, fn, top=5, show=()):
     """`fn()` under torch.profiler: wall time, device busy time (the sum of
-    kernel times on the one stream) and the top kernels. Returns fn's result."""
+    kernel times on the one stream), the `top` kernels and the time and busy
+    share of the kernels named in `show`. Returns fn's result."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -557,10 +751,13 @@ def profile(torch, what, fn):
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
     log(f"phase 5 profile: {what}, wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms, idle share {1 - busy_us / wall_us:.3f}; top kernels: "
-        + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in top))
+        + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in ranked))
+    for name in show:
+        us = sum(e.self_device_time_total for e in kernels if name in e.key)
+        log(f"  {name}: {us / 1e3:.4f} ms, {us / busy_us:.4f} of device busy")
     return res
 
 
@@ -898,6 +1095,8 @@ def slice_kernel_rows(torch, device, bulk_keys, bulk_vals, b, capacity, errs, la
     plain = time_ms(torch, lambda: merge_path.merge_path_plain(*halves, shift=0))
     lib = time_ms(torch, lambda: sort_lib(rkv, val))
     bound_ms, bound_by = bound(16 * n, 0)
+    passes = [merge_passes(torch, lambda: merge_path.merge_path(*halves, compare_full=True), f"two halves of {n}",
+                           bound_ms)]
     del rkv, halves
     a_kv, a_val = bitonic_sort.sort_pairs_plain(kv[:b], val[:b])
     arr_kv, arr_val = torch.full((capacity,), PLACEBO_KV, dtype=torch.int32, device=device), torch.zeros(
@@ -913,21 +1112,37 @@ def slice_kernel_rows(torch, device, bulk_keys, bulk_vals, b, capacity, errs, la
               plain_ms=time_ms(torch, lambda: merge_path.merge_path_plain(a_kv, a_val, arr_kv, arr_val)),
               bound_ms=bound(16 * (capacity + b), 0)[0],
               library_ms=time_ms(torch, lambda: sort_lib(cat_kv >> 1, cat_val)))
+    passes.append(merge_passes(torch, lambda: merge_path.merge_path(a_kv, a_val, arr_kv, arr_val, out=out),
+                               f"SA merge of {b} into {capacity} slots", sa["bound_ms"]))
     rows.append(dict(name="merge_path", route="cuda", source="src/repro_torch/csrc/merge_path.cu",
                      replaces="src/repro/kernels/merge_path.py:117", launches=launches["merge_path"],
                      max_abs_err=errs["merge_path"], ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
-                     library_ms=lib, also=[sa]))
+                     library_ms=lib, also=[sa, *passes]))
     log_rows(rows)
     return rows
 
 
+def merge_passes(torch, fn, what, bound_ms):
+    """The Merge Path's two launches timed apart, device time per call from
+    the profiler: the split pass and the tile merge (whose bound is the
+    merge's: every byte moves there)."""
+    t = kernel_ms(torch, fn, ["merge_split_kernel", "merge_tiles_kernel"])
+    log(f"  merge_path passes, {what}: split {t['merge_split_kernel']:.4f} ms, merge {t['merge_tiles_kernel']:.4f} ms")
+    return dict(what=f"{what}: split pass, then merge pass (profiler device ms)",
+                ms=t["merge_split_kernel"] + t["merge_tiles_kernel"], split_ms=t["merge_split_kernel"],
+                merge_ms=t["merge_tiles_kernel"], bound_ms=bound_ms)
+
+
 def log_rows(rows):
+    def fmt(x):
+        return "none" if x is None else f"{x:.4f}"
+
     for r in rows:
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"phase 5 {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.4f}, "
-            f"torch {lib}); " + "; ".join(
-                f"{a['what']}: {a['ms']:.4f} ms (bound {a['bound_ms']:.4f}, plain {a['plain_ms']:.4f}, "
-                f"torch {a['library_ms']:.4f})" for a in r["also"]))
+            f"torch {fmt(r['library_ms'])}); " + "; ".join(
+                f"{a['what']}: {fmt(a['ms'])} ms (device only {fmt(a.get('device_ms'))}, bound "
+                f"{fmt(a.get('bound_ms'))}, plain {fmt(a.get('plain_ms'))}, torch {fmt(a.get('library_ms'))})"
+                for a in r["also"]))
 
 
 # ---------------------------------------------------------------------------
@@ -997,6 +1212,10 @@ def main() -> int:
     t0 = time.perf_counter()
     k1 = dev_tensor(torch, rng.integers(0, MAX_USER_KEY - 1022, 1 << 14).astype(np.int32), device)
     rows = kernel_rows(torch, d, q_lookup, k1, errs, launches4)
+    from repro_torch.api import QueryPlan
+    profile(torch, f"count of {k1.shape[0]} windows of 1024 keys",
+            lambda: d.count(k1, k1 + 1023, QueryPlan(max_candidates=1024, max_results=512)), top=10,
+            show=("bounds_runs_kernel", "radixSort"))
     keys = dev_tensor(torch, rng.integers(0, MAX_USER_KEY + 1, 1 << 20).astype(np.int32), device)
     d = profile(torch, f"insert of {keys.shape[0]} lanes", lambda: d.insert(keys, keys % 1009))
     log(f"phase 5 kernel timing: {time.perf_counter() - t0:.2f} s")

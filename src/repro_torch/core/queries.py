@@ -3,7 +3,8 @@
 All three are expressed over *runs*: sorted (key_var, value) tensors ordered
 newest first (the write buffer, then level 0..L-1). Count and range are the
 paper's five-stage pipeline at fixed shapes:
-  1. per-run lower/upper bound binary searches (the bound kernel);
+  1. per-run lower/upper bound searches (the bound kernel, one launch for
+     every run and both ends of every window);
   2. per-query candidate offsets by prefix sums;
   3. a gather into a [num_queries, max_candidates] placebo-filled tile;
   4. a row-wise stable sort by original key (stability keeps recency);
@@ -41,13 +42,8 @@ def _gather_candidates(runs, k1, k2, max_candidates: int, flat=None):
     """
     nq = k1.shape[0]
     device = k1.device
-    lows, counts = [], []
-    for kv, _ in runs:
-        lo = ops.lower_bound(kv, k1)
-        hi = ops.upper_bound(kv, k2)
-        lows.append(lo)
-        counts.append((hi - lo).clamp(min=0))
-    counts_m = torch.stack(counts)                              # [n_runs, nq]
+    lows, highs = ops.window_bounds(runs, k1, k2)               # [n_runs, nq] each
+    counts_m = (highs - lows).clamp(min=0)
     offsets = (torch.cumsum(counts_m, 0) - counts_m).to(torch.int32)
     total = counts_m.sum(0).to(torch.int32)
     ok = total <= max_candidates

@@ -37,23 +37,41 @@ static inline bool repro_make_runs(RunSet* rs, const void* const* kv,
   return true;
 }
 
-// First index in a[0, n) whose key (a[i] >> shift) is >= c (upper == false,
-// std::lower_bound) or > c (upper == true, std::upper_bound). The keys must
-// be ascending after the shift.
-__device__ __forceinline__ long long repro_search(const int* __restrict__ a,
-                                                  long long n, int c,
-                                                  int shift, bool upper) {
-  long long lo = 0, hi = n;
+// The binary search of every kernel: the first index in [lo, hi) where the
+// monotone predicate `left` (true on a prefix of the range, false after it)
+// is false. I is int or long long.
+template <typename I, typename Left>
+__device__ __forceinline__ I repro_partition_point(I lo, I hi, Left left) {
   while (lo < hi) {
-    long long mid = lo + ((hi - lo) >> 1);
-    int v = __ldg(a + mid) >> shift;
-    if (upper ? (v <= c) : (v < c)) {
+    const I mid = lo + ((hi - lo) >> 1);
+    if (left(mid)) {
       lo = mid + 1;
     } else {
       hi = mid;
     }
   }
   return lo;
+}
+
+// a[i] >> shift is left of c: < c (std::lower_bound) or <= c (upper,
+// std::upper_bound).
+struct KeyLeft {
+  const int* a;
+  int c, shift;
+  bool upper;
+  __device__ __forceinline__ bool operator()(long long i) const {
+    const int v = __ldg(a + i) >> shift;
+    return upper ? v <= c : v < c;
+  }
+};
+
+// First index in a[0, n) whose key (a[i] >> shift) is >= c (upper == false,
+// std::lower_bound) or > c (upper == true, std::upper_bound). The keys must
+// be ascending after the shift.
+__device__ __forceinline__ long long repro_search(const int* __restrict__ a,
+                                                  long long n, int c,
+                                                  int shift, bool upper) {
+  return repro_partition_point(0LL, n, KeyLeft{a, c, shift, upper});
 }
 
 static inline unsigned int repro_blocks(long long n, int threads) {

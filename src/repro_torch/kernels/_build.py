@@ -63,10 +63,12 @@ class Kernel:
 
     def __init__(self, source: str, symbol: str, argtypes, *, also: dict | None = None):
         self.source = CSRC / source
+        self.symbol = symbol
         self.entries = {symbol: list(argtypes), **{name: list(t) for name, t in (also or {}).items()}}
         self.launches = 0
         self.build_log = ""
         self._fns = None
+        self._constants = {}
 
     @property
     def library(self) -> Path:
@@ -112,13 +114,34 @@ class Kernel:
             self._fns = fns
         return self._fns
 
+    def constant(self, name: str) -> int:
+        """The int that the source's C entry `name` returns: an entry that
+        takes no arguments and launches nothing (a compile-time constant of
+        the kernel, such as a tile size). Not a launch."""
+        if name not in self._constants:
+            self._load()
+            fn = getattr(ctypes.CDLL(str(self.library)), name)
+            fn.argtypes, fn.restype = [], ctypes.c_int
+            self._constants[name] = fn()
+        return self._constants[name]
+
     def launch(self, device: torch.device, *args, entry: str | None = None) -> None:
         """Call a C entry (the first by default) on `device`, on PyTorch's
-        current stream of that device; raise on a CUDA error."""
-        name = entry or next(iter(self.entries))
-        fn = self._load()[name]
-        with torch.cuda.device(device):
-            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        current stream of that device; raise on a CUDA error.
+
+        The device is made current only when it is not already (the C entry
+        launches into the current CUDA context), and the stream is read as a
+        raw handle: a launch costs the host one ctypes call and little else."""
+        name = entry or self.symbol
+        fn = (self._fns or self._load())[name]
+        current = torch.cuda.current_device()
+        index = current if device.index is None else device.index
+        stream = torch._C._cuda_getCurrentRawStream(index)  # the handle of the current stream
+        if index == current:
+            err = fn(*args, stream)
+        else:
+            with torch.cuda.device(index):
+                err = fn(*args, stream)
         if err != 0:
             raise RuntimeError(f"{name} failed with CUDA error {err}")
         self.launches += 1
@@ -134,31 +157,33 @@ def build_all(kernels) -> None:
         k._load()
 
 
-def run_pointers(kvs, vals):
-    """ctypes arrays of the run pointers and lengths for a RunSet argument."""
+def run_pointers(kvs, vals=None):
+    """ctypes arrays of the run pointers and lengths for a RunSet argument.
+    Without `vals` the value pointers are the key pointers (a launch that
+    reads keys only)."""
     k = len(kvs)
     if not 1 <= k <= MAX_RUNS:
         raise ValueError(f"a launch takes 1 to {MAX_RUNS} runs, got {k}")
-    for kv, val in zip(kvs, vals):
-        if kv.shape != val.shape:
-            raise ValueError(f"run kv/val lengths differ: {kv.shape[0]} vs {val.shape[0]}")
-    return (
-        (P * k)(*[t.data_ptr() for t in kvs]),
-        (P * k)(*[t.data_ptr() for t in vals]),
-        (I64 * k)(*[t.shape[0] for t in kvs]),
-    )
+    lens = [t.shape[0] for t in kvs]
+    kvp = (P * k)(*[t.data_ptr() for t in kvs])
+    if vals is None:
+        return kvp, kvp, (I64 * k)(*lens)
+    if [t.shape[0] for t in vals] != lens:
+        raise ValueError(f"run kv/val lengths differ: {lens} vs {[t.shape[0] for t in vals]}")
+    return kvp, (P * k)(*[t.data_ptr() for t in vals]), (I64 * k)(*lens)
 
 
 def check_cuda_int32(name: str, *tensors) -> torch.device:
     """Check that every tensor is a contiguous 1-D int32 tensor on one CUDA
-    device, and return that device."""
-    device = tensors[0].device
+    device, and return that device. (Integer device indices and flags keep
+    the check cheap: it runs on every launch.)"""
+    index = tensors[0].get_device()
     for t in tensors:
-        if t.device.type != "cuda" or t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+        if not t.is_cuda or t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
             raise ValueError(
                 f"{name}: expected contiguous 1-D int32 CUDA tensors, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}"
             )
-        if t.device != device:
-            raise ValueError(f"{name}: tensors on {device} and {t.device}; a launch takes one device")
-    return device
+        if t.get_device() != index:
+            raise ValueError(f"{name}: tensors on {tensors[0].device} and {t.device}; a launch takes one device")
+    return tensors[0].device

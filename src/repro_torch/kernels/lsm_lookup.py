@@ -1,14 +1,15 @@
-"""Searches over sorted runs: lower/upper bound and the multi-run LOOKUP.
+"""Searches over sorted runs: lower/upper bounds and the multi-run LOOKUP.
 
-`bound` launches `csrc/bounds.cu` (replacing the Pallas
-`repro.kernels.lsm_lookup.lower_bound_streamed`) and `fused_lookup_runs`
-launches `csrc/fused_lookup.cu` (replacing the Pallas
+`bound` (one run) and `bounds_runs` (every run of an LSM, both ends of a
+count/range window, in one launch) launch `csrc/bounds.cu` (replacing the
+Pallas `repro.kernels.lsm_lookup.lower_bound_streamed`), and
+`fused_lookup_runs` launches `csrc/fused_lookup.cu` (replacing the Pallas
 `repro.kernels.lsm_lookup.fused_lookup_runs`) on CUDA tensors. On CPU tensors
-each runs its plain version below, which is the kernel's per-query binary
-search written over all queries at once.
+each runs its plain version below, a binary search written over all queries
+at once; the bound kernels run the same binary search, one lane a query.
 
 The TPU kernels compare every query with every key (O(q * n)), which a TPU
-streams at its memory rate; on Hopper one binary search per query and run
+streams at its memory rate; on Hopper one search per query and run
 does the same job in O(q log n) loads, as the paper does it (§4.2).
 """
 
@@ -17,11 +18,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import semantics as sem
-from repro_torch.kernels._build import I32, I64, P, Kernel, check_cuda_int32, run_pointers
+from repro_torch.kernels._build import I32, I64, MAX_RUNS, P, Kernel, check_cuda_int32, run_pointers
 
 BOUND_KERNEL = Kernel(
     "bounds.cu", "repro_bound",
     [P, I64, P, I64, I32, I32, P, P],  # keys, n, q, nq, shift, upper, out, stream
+    # kv[], n[], k, k1, k2, nq, shift, lows, highs, stream
+    also={"repro_bounds_runs": [P, P, I32, P, P, I64, I32, P, P, P]},
 )
 LOOKUP_KERNEL = Kernel(
     "fused_lookup.cu", "repro_fused_lookup",
@@ -58,6 +61,35 @@ def bound(sorted_kv, query_keys, *, shift: int = 1, upper: bool = False) -> torc
         device, sorted_kv.data_ptr(), n, query_keys.data_ptr(), nq, shift, int(upper), out.data_ptr()
     )
     return out
+
+
+def bounds_runs_plain(runs_kv, k1, k2, *, shift: int = 1):
+    """Per run, the lower bound of k1 and the upper bound of k2 -> int32
+    (lows, highs), each [len(runs_kv), nq]."""
+    lows = [search_plain(kv, k1, shift=shift, upper=False) for kv in runs_kv]
+    highs = [search_plain(kv, k2, shift=shift, upper=True) for kv in runs_kv]
+    return torch.stack(lows).to(torch.int32), torch.stack(highs).to(torch.int32)
+
+
+def bounds_runs(runs_kv, k1, k2, *, shift: int = 1):
+    """Count/range stage 1 in one launch: for every run (in `kv >> shift`,
+    any lengths, 0 included), the lower bound of each k1 and the upper bound
+    of each k2 -> int32 (lows, highs), each [len(runs_kv), nq]."""
+    k = len(runs_kv)
+    if not 1 <= k <= MAX_RUNS or k1.shape != k2.shape:
+        raise ValueError(f"bounds_runs takes 1 to {MAX_RUNS} runs and k1, k2 of one shape")
+    if k1.device.type == "cpu":
+        return bounds_runs_plain(runs_kv, k1, k2, shift=shift)
+    device = check_cuda_int32("bounds_runs", k1, k2, *runs_kv)
+    kvp, _, n = run_pointers(runs_kv)
+    if max(n) >= 1 << 31:
+        raise ValueError("bounds_runs returns int32 indices; a run of 2^31 elements or more is too long")
+    nq = k1.shape[0]
+    out = torch.empty((2, k, nq), dtype=torch.int32, device=device)
+    lows = out.data_ptr()  # out[0], then out[1] = highs at 4 * k * nq bytes on
+    BOUND_KERNEL.launch(device, kvp, n, k, k1.data_ptr(), k2.data_ptr(), nq, shift,
+                        lows, lows + 4 * k * nq, entry="repro_bounds_runs")
+    return out[0], out[1]
 
 
 def fused_lookup_plain(runs_kv, runs_val, query_keys):

@@ -7,9 +7,11 @@ kernel (`csrc/merge_cascade.cu`, replacing the Pallas
 pointer (the LSM's cascade, cleanup and size merge), or every group of K
 adjacent equal-width runs of one array in one launch (a round of the batch
 sort). `cascade_split` launches the same kernel's K-way split alone.
-`merge_path` launches the CUDA Merge Path kernel (`csrc/merge_path.cu`,
+`merge_path` launches the CUDA Merge Path kernels (`csrc/merge_path.cu`,
 replacing the Pallas `repro.kernels.merge_path.merge_path`) on one pair of
-runs (the sorted array's merge). On CPU tensors each runs its plain version,
+runs (the sorted array's merge): a split pass over the tile boundaries, then
+the tile merge; `merge_split` launches the split alone at given diagonals
+(for checks). On CPU tensors each runs its plain version,
 the same function in PyTorch. The Hopper kernels take any run lengths, so
 no TPU tiling gate routes a shape elsewhere.
 
@@ -36,9 +38,12 @@ SPLIT_KERNEL = Kernel(
 )
 PATH_KERNEL = Kernel(
     "merge_path.cu", "repro_merge_path",
-    # a_kv, a_val, a_stride, a_total, w_a, b_kv, b_val, b_stride, b_total, w_b,
-    # pairs, shift, out_kv, out_val, stream
-    [P, P, I64, I64, I64, P, P, I64, I64, I64, I64, I32, P, P, P],
+    # a_kv, a_val, na, b_kv, b_val, nb, shift, splits, n_splits, out_kv, out_val, stream
+    [P, P, I64, P, P, I64, I32, P, I64, P, P, P],
+)
+PATH_SPLIT_KERNEL = Kernel(
+    "merge_path.cu", "repro_merge_split",
+    [P, I64, P, I64, I32, P, I64, P, P],  # a_kv, na, b_kv, nb, shift, diags, nd, out, stream
 )
 
 
@@ -155,10 +160,16 @@ def cascade_split(runs_kv, diags, *, compare_full: bool = False):
     device = check_cuda_int32("cascade_split", *runs_kv)
     if diags.dtype != torch.int64 or diags.device != device or not diags.is_contiguous():
         raise ValueError("cascade_split: diags must be contiguous int64 on the runs' device")
-    kvp, _, n = run_pointers(runs_kv, runs_kv)
+    kvp, _, n = run_pointers(runs_kv)
     out = torch.empty((len(runs_kv), diags.shape[0]), dtype=torch.int64, device=device)
     SPLIT_KERNEL.launch(device, kvp, n, len(runs_kv), shift, diags.data_ptr(), diags.shape[0], out.data_ptr())
     return out
+
+
+def path_tile() -> int:
+    """Outputs per merge tile of the Merge Path kernel (MP_TILE in
+    csrc/merge_path.cu; builds the kernel on first use)."""
+    return PATH_KERNEL.constant("repro_merge_tile")
 
 
 def merge_path_plain(a_kv, a_val, b_kv, b_val, *, shift: int = 1, out=None):
@@ -187,8 +198,41 @@ def merge_path(a_kv, a_val, b_kv, b_val, *, compare_full: bool = False, out=None
     if a_val.shape[0] != na or b_val.shape[0] != nb:
         raise ValueError("merge_path: kv and val lengths differ")
     if na + nb:
-        PATH_KERNEL.launch(
-            device, a_kv.data_ptr(), a_val.data_ptr(), 0, na, na,
-            b_kv.data_ptr(), b_val.data_ptr(), 0, nb, nb, 1, shift, out[0].data_ptr(), out[1].data_ptr(),
-        )
+        n_splits = -(-(na + nb) // path_tile()) + 1
+        splits = torch.empty(n_splits, dtype=torch.int64, device=device)
+        PATH_KERNEL.launch(device, a_kv.data_ptr(), a_val.data_ptr(), na, b_kv.data_ptr(), b_val.data_ptr(), nb,
+                           shift, splits.data_ptr(), n_splits, out[0].data_ptr(), out[1].data_ptr())
+    return out
+
+
+def merge_split_plain(a_keys, b_keys, diags):
+    """The Merge Path split -> int64: per diagonal d (in [0, na + nb]), the
+    number of elements of `a` among the first d outputs of the merge, ties to
+    `a` (take from `a` while a_key <= b_key), by a binary search of every
+    diagonal at once; as `repro.kernels.merge_path.merge_partition` computes
+    it. The keys are the compared ones (`kv >> shift`)."""
+    na, nb = a_keys.shape[0], b_keys.shape[0]
+    d = diags.to(torch.int64)
+    lo, hi = (d - nb).clamp(min=0), d.clamp(max=na)
+    if na and nb:  # else lo == hi already
+        for _ in range((na + nb).bit_length()):
+            mid = (lo + hi) // 2
+            take_a = a_keys[mid.clamp(max=na - 1)] <= b_keys[(d - 1 - mid).clamp(0, nb - 1)]
+            active = lo < hi
+            lo, hi = torch.where(active & take_a, mid + 1, lo), torch.where(active & ~take_a, mid, hi)
+    return lo
+
+
+def merge_split(a_kv, b_kv, diags, *, compare_full: bool = False):
+    """The merge's split kernel alone at `diags` (int64, each in [0, na + nb])
+    -> int64 (see `merge_split_plain`)."""
+    shift = 0 if compare_full else 1
+    if a_kv.device.type == "cpu":
+        return merge_split_plain(a_kv >> shift, b_kv >> shift, diags)
+    device = check_cuda_int32("merge_split", a_kv, b_kv)
+    if diags.dtype != torch.int64 or diags.device != device or diags.dim() != 1 or not diags.is_contiguous():
+        raise ValueError("merge_split: diags must be contiguous 1-D int64 on the runs' device")
+    out = torch.empty(diags.shape[0], dtype=torch.int64, device=device)
+    PATH_SPLIT_KERNEL.launch(device, a_kv.data_ptr(), a_kv.shape[0], b_kv.data_ptr(), b_kv.shape[0], shift,
+                             diags.data_ptr(), diags.shape[0], out.data_ptr())
     return out

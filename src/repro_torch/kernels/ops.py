@@ -62,6 +62,13 @@ def upper_bound(sorted_kv, query_keys):
     return lsm_lookup.bound(sorted_kv, query_keys, shift=1, upper=True)
 
 
+def window_bounds(runs, k1, k2):
+    """Count/range stage 1 over runs (any order): per run, the lower bound of
+    k1 and the upper bound of k2 by original key -> int32 (lows, highs), each
+    [len(runs), nq]; one launch of the bound kernel for all runs."""
+    return lsm_lookup.bounds_runs([kv for kv, _ in runs], k1, k2, shift=1)
+
+
 def lookup_runs_fused(runs, query_keys):
     """LOOKUP over runs given newest first -> (found: bool, values: int32).
 

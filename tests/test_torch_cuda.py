@@ -12,8 +12,8 @@ import torch
 
 from repro_torch.kernels import bitonic_sort, lsm_lookup, merge_path
 from torch_cases import (
-    MERGE_CASES, PAIR_LENGTHS, QUERY_EDGES, SORT_NS, eq, lookup_case, merge_pair, runs_np, sort_case,
-    sorted_run, t,
+    MAX_USER_KEY, MERGE_CASES, PAIR_LENGTHS, QUERY_EDGES, SORT_NS, eq, lookup_case, merge_pair, runs_np,
+    sort_case, sorted_run, t,
 )
 
 
@@ -40,14 +40,50 @@ def test_cuda_merge_matches_plain(cuda, lengths, key_hi):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [0, 1, 255, 4099])
-def test_cuda_bounds_match_plain(cuda, n):
+@pytest.mark.parametrize("key_hi", [5, 1000])
+@pytest.mark.parametrize("n", [0, 1, 3, 31, 33, 255, 257, 4095, 4097, 4099, (1 << 16) + 1])
+def test_cuda_bounds_match_plain(cuda, n, key_hi):
+    """Lengths 0, 1, 3 and 2^k +- 1; with few keys the placebo tail (a third
+    of the run) and the equal-key segments span many probes."""
     rng = np.random.default_rng(n)
-    kv, _ = sorted_run(rng, n, 1000, placebo_tail=n // 5)
-    q = np.concatenate([rng.integers(0, 1002, 500), QUERY_EDGES]).astype(np.int32)
+    kv, _ = sorted_run(rng, n, key_hi, placebo_tail=n // 3)
+    q = np.concatenate([rng.integers(-1, key_hi + 2, 500), QUERY_EDGES]).astype(np.int32)
     for upper in (False, True):
         got = lsm_lookup.bound(t(kv).to(cuda), t(q).to(cuda), upper=upper)
         eq(got.cpu(), lsm_lookup.bound(t(kv), t(q), upper=upper))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_hi", [4, 1 << 12, 1 << 24])
+def test_cuda_bounds_runs_match_plain(cuda, key_hi):
+    """13 runs as count/range sees them: an empty write buffer, levels with
+    placebo tails (every fourth all placebos), windows with k1 > k2 and the
+    edge keys at both ends."""
+    rng = np.random.default_rng(key_hi)
+    lengths = [0] + [(1 << 8) << i for i in range(12)]
+    runs = [sorted_run(rng, n, key_hi, placebo_tail=n if s % 4 == 3 else n // 4)[0] for s, n in enumerate(lengths)]
+    k1 = np.concatenate([rng.integers(-1, key_hi + 2, 3000), QUERY_EDGES, [5, MAX_USER_KEY]]).astype(np.int32)
+    k2 = np.concatenate([k1[:3000] + rng.integers(-3, 1 << 10, 3000), QUERY_EDGES[::-1], [4, MAX_USER_KEY]])
+    k2 = np.clip(k2, -(1 << 31), (1 << 31) - 1).astype(np.int32)
+    got = lsm_lookup.bounds_runs([t(kv).to(cuda) for kv in runs], t(k1).to(cuda), t(k2).to(cuda))
+    exp = lsm_lookup.bounds_runs_plain([t(kv) for kv in runs], t(k1), t(k2))
+    eq(got[0].cpu(), exp[0])
+    eq(got[1].cpu(), exp[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("na,nb", [(0, 5000), (1, 5000), (5000, 1), (3, 3), (64, 1 << 18), (9000, 9001)])
+def test_cuda_merge_split_matches_plain(cuda, na, nb):
+    """The split at every tile boundary and at every 7th diagonal."""
+    for key_hi in (1, 40, 1 << 20):
+        for compare_full in (False, True):
+            (a, _), (b, _) = merge_pair(na + nb + key_hi, na, nb, key_hi, compare_full)
+            n = na + nb
+            diags = torch.cat([torch.arange(0, n + 1, merge_path.path_tile()), torch.arange(0, n + 1, 7),
+                               torch.tensor([n])])
+            got = merge_path.merge_split(t(a).to(cuda), t(b).to(cuda), diags.to(cuda), compare_full=compare_full)
+            shift = 0 if compare_full else 1
+            eq(got.cpu(), merge_path.merge_split_plain(t(a) >> shift, t(b) >> shift, diags))
 
 
 @pytest.mark.cuda
@@ -63,6 +99,8 @@ def test_cuda_launch_rejects_mixed_devices(cuda):
         merge_path.merge_path(kv.to(cuda), kv.to(cuda), kv, kv)
     with pytest.raises(ValueError, match="CUDA"):
         bitonic_sort.block_sort(kv.to(cuda), kv)
+    with pytest.raises(ValueError, match="CUDA"):
+        lsm_lookup.bounds_runs([kv.to(cuda), kv], kv.to(cuda), kv.to(cuda))
 
 
 @pytest.mark.cuda
@@ -90,16 +128,25 @@ def test_cuda_sort_matches_plain(cuda, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("na", PAIR_LENGTHS + [3000])
-@pytest.mark.parametrize("nb", PAIR_LENGTHS + [5000])
-def test_cuda_merge_path_matches_plain(cuda, na, nb):
-    for compare_full in (False, True):
-        runs = merge_pair(na * 7 + nb, na, nb, 30, compare_full)
-        args = [t(a) for run in runs for a in run]
-        got = merge_path.merge_path(*[a.to(cuda) for a in args], compare_full=compare_full)
-        exp = merge_path.merge_path(*args, compare_full=compare_full)
-        eq(got[0].cpu(), exp[0])
-        eq(got[1].cpu(), exp[1])
+@pytest.mark.parametrize("na_tiles,na_extra", [(0, n) for n in PAIR_LENGTHS + [3, 3000]] + [(1, 1), (2, 1)])
+@pytest.mark.parametrize("nb", PAIR_LENGTHS + [3, 5000, 70001])
+def test_cuda_merge_path_matches_plain(cuda, na_tiles, na_extra, nb):
+    """Lengths around a merge tile (`a` holds na_tiles kernel tiles and
+    na_extra elements); inputs at the start of their storage and as views 1
+    or 3 elements into it (windows and bases off a 16-byte boundary: scalar
+    loads), a fresh output and one 1 element into its storage (scalar
+    stores); one key everywhere (ties across whole tiles) and random keys."""
+    na = na_tiles * merge_path.path_tile() + na_extra
+    for key_hi, offset in ((30, 0), (1, 1), (1 << 20, 3)):
+        for compare_full in (False, True):
+            runs = merge_pair(na * 7 + nb + key_hi, na, nb, key_hi, compare_full)
+            args = [torch.cat([t(np.zeros(offset, np.int32)), t(a)]).to(cuda)[offset:] for run in runs for a in run]
+            exp = merge_path.merge_path(*[a.cpu() for a in args], compare_full=compare_full)
+            out = [torch.empty(na + nb + 1, dtype=torch.int32, device=cuda)[1:] for _ in range(2)]
+            for o in (None, out):
+                got = merge_path.merge_path(*args, compare_full=compare_full, out=o)
+                eq(got[0].cpu(), exp[0])
+                eq(got[1].cpu(), exp[1])
 
 
 @pytest.mark.cuda
