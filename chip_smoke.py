@@ -15,7 +15,11 @@ Phases, one line each with its seconds:
      of 0, 1, 3 and 2^k +- 1 keys with long placebo segments, and count/range
      stage 1 over 13 runs with an empty buffer run and windows with k1 > k2;
      for Merge Path: edge lengths, windows, inputs and outputs off a 16-byte
-     boundary, and its split launcher at every tile boundary);
+     boundary, and its split launcher at every tile boundary; for the lookup:
+     13 LSM-shaped runs, the same runs over 64 keys so equal-key segments
+     cross many sample strides, one run of 2^27 slots, empty runs and 32
+     runs, each at query counts on both sides of the kernel's bucket
+     threshold and with tombstone hits);
   4. the main path through the `Dictionary` facade at the paper's Table 2
      scale (n = 2^27 resident elements, b = 2^16, L = 12): fill by inserts,
      delete, re-insert, flush, lookup, count, range, maintain, cleanup, size,
@@ -26,11 +30,14 @@ Phases, one line each with its seconds:
      (the cascade merge also at one push_batch shape; the bound kernel also
      device only, from a replayed CUDA graph, and as count/range stage 1 in
      one launch beside 26 library searches and 26 single-run launches; the
+     lookup also device only, with its footprint in 32-byte sectors beside
+     its element bound, and at the sorted array's shape, one run of 2^27
+     slots, on phase 6's data; the
      rows of the batch sort, timed as the whole function with its block sort
      and first K-way round beside it, and of the pairwise merge, with its
      split and merge passes apart, are timed after phase 6, on its data);
      the host microseconds of one kernel launch, and profiles of one count
-     call, one insert call and direct update batches;
+     call, one lookup call, one insert call and direct update batches;
   6. the paper-exact update path, bulk build and the sorted-array baseline
      at full width (phase 4's dictionary freed first): an LSM of capacity
      2^27 (b = 2^16, L = 12) bulk-built from 2^26 unique keys, then 1024
@@ -104,6 +111,27 @@ def sorted_run(rng, n, key_hi, tomb_frac=0.3, placebo_frac=0.25):
 
 def dev_tensor(torch, a, device):
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def device_run(torch, gen, n, key_hi, device, tomb_frac=0.3, placebo_frac=0.25):
+    """sorted_run made on the card (a run of 2^27 slots takes seconds on the host)."""
+    tail = int(n * placebo_frac)
+    keys = torch.sort(torch.randint(0, key_hi, (n - tail,), generator=gen, device=device, dtype=torch.int32)).values
+    live = (torch.rand(n - tail, generator=gen, device=device) >= tomb_frac).to(torch.int32)
+    kv = torch.cat([(keys << 1) | live, torch.full((tail,), PLACEBO_KV, dtype=torch.int32, device=device)])
+    val = torch.randint(-(1 << 20), 1 << 20, (n,), generator=gen, device=device, dtype=torch.int32)
+    val[n - tail:] = 0
+    return kv, val
+
+
+def lookup_queries(torch, gen, kvs, key_hi, nq, device):
+    """Half the queries keys of the runs, half uniform below key_hi + 3, and the edge keys."""
+    keys = torch.cat([kv >> 1 for kv in kvs])
+    n_hit = nq // 2 if keys.numel() else 0
+    return torch.cat([keys[torch.randint(0, max(keys.numel(), 1), (n_hit,), generator=gen, device=device)],
+                      torch.randint(0, key_hi + 3, (nq - n_hit - len(EDGE_KEYS),), generator=gen, device=device,
+                                    dtype=torch.int32),
+                      torch.tensor(EDGE_KEYS, dtype=torch.int32, device=device)])
 
 
 # ---------------------------------------------------------------------------
@@ -212,21 +240,32 @@ def check_kernels(torch, device, rng):
         errs["bound"] = max(errs["bound"], max_err(torch, got, exp))
         cases += 1
 
-    b = 1 << 12  # 13 runs (buffer + 12 levels), 2^24 elements
-    runs = [sorted_run(rng, n, 1 << 22) for n in [b] + [b << i for i in range(12)]]
-    flat = np.concatenate([kv for kv, _ in runs]) >> 1
-    q = np.concatenate([rng.choice(flat, 1 << 19), rng.integers(0, 1 << 23, (1 << 19) - 4),
-                        [0, MAX_USER_KEY, PLACEBO_KEY, INT32_MAX]]).astype(np.int32)
-    kvs = [dev_tensor(torch, kv, device) for kv, _ in runs]
-    vals = [dev_tensor(torch, v, device) for _, v in runs]
-    q_d = dev_tensor(torch, q, device)
-    got = lsm_lookup.fused_lookup_runs(kvs, vals, q_d)
-    exp = lsm_lookup.fused_lookup_plain(kvs, vals, q_d)
-    torch.cuda.synchronize()
-    errs["fused_lookup"] = max_err(torch, got, exp)
-    tomb_hits = int(((got[0] >> 1 == q_d) & (got[0] & 1 == 0)).sum())
-    require(tomb_hits > 0, "lookup check has no tombstone hits")
-    cases += 1
+    # Lookup, each case exact and with tombstone hits, each shape on both
+    # sides of the kernel's bucket threshold (from it on the queries are
+    # searched in bucket order, below it in their own order): the main path's
+    # shape (13 runs, buffer + 12 levels, 2^24 slots); the same runs with 64
+    # keys, so every equal-key segment crosses many sample strides; one run
+    # of 2^27 slots (the sorted array's shape); empty runs; 32 runs.
+    bucket_min = lsm_lookup.LOOKUP_KERNEL.constant("repro_lookup_bucket_min")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.integers(1 << 31)))
+    lookup_cases = [(lsm_lengths, 1 << 22, 1 << 20), (lsm_lengths, 1 << 22, 1 << 12), (lsm_lengths, 64, 1 << 20),
+                    (lsm_lengths, 64, bucket_min - 1), ([1 << 27], MAX_USER_KEY + 1, 1 << 20),
+                    ([1 << 27], MAX_USER_KEY + 1, bucket_min - 1), ([0, 5000, 0, 1 << 16, 0], 1000, (1 << 16) + 3),
+                    ([0, 5000, 0, 1 << 16, 0], 1000, bucket_min + 3), ([3000 + 7 * s for s in range(32)], 500, 1000),
+                    ([3000 + 7 * s for s in range(32)], 500, bucket_min)]
+    for lengths, key_hi, nq in lookup_cases:
+        runs = [device_run(torch, gen, n, key_hi, device) for n in lengths]
+        kvs, vals = [kv for kv, _ in runs], [v for _, v in runs]
+        q_d = lookup_queries(torch, gen, kvs, key_hi, nq, device)
+        exp = lsm_lookup.fused_lookup_plain(kvs, vals, q_d)
+        got = lsm_lookup.fused_lookup_runs(kvs, vals, q_d)
+        torch.cuda.synchronize()
+        errs["fused_lookup"] = max(errs["fused_lookup"], max_err(torch, got, exp))
+        tomb_hits = int(((got[0] >> 1 == q_d) & (got[0] & 1 == 0)).sum())
+        require(tomb_hits > 0, f"lookup check over runs {lengths[:3]}..., {nq} queries, has no tombstone hits")
+        cases += 1
+    del runs, kvs, vals, q_d, got, exp
 
     # Batch sort: few distinct keys, so identical key variables repeat and
     # the values (the lanes) show that the order is stable.
@@ -581,6 +620,62 @@ def checker(torch, errs):
     return check
 
 
+def lookup_footprint(torch, kvs, vals, q):
+    """Replay the lookup's searches (the runs newest first, each query's
+    binary search until its first match) on the data. Returns the distinct
+    keys and values read, the distinct 32-byte sectors they lie in, and the
+    probes and match checks."""
+    from repro_torch.kernels import lsm_lookup
+
+    nq = q.shape[0]
+    active = torch.ones(nq, dtype=torch.bool, device=q.device)
+    read = sectors = probes = 0
+    for kv, val in zip(kvs, vals):
+        n = kv.shape[0]
+        if n == 0:
+            continue
+        idx, seen, p = search_footprint(torch, kv, q, active)
+        ends = active & (idx < n)
+        seen[idx[ends]] = True
+        hit = ends & ((kv[idx.clamp(max=n - 1)] >> 1) == q)
+        val_read = torch.unique(idx[hit])
+        read += int(seen.sum()) + val_read.numel()
+        sectors += torch.unique((kv.data_ptr() // 4 + seen.nonzero()) >> 3).numel()
+        sectors += torch.unique((val.data_ptr() // 4 + val_read) >> 3).numel()
+        probes += p + int(ends.sum())
+        active &= ~hit
+    got_kv, _ = lsm_lookup.fused_lookup_runs(kvs, vals, q)
+    require(torch.equal(~active, (got_kv >> 1) == q), "lookup footprint replay differs")
+    return read, sectors, probes
+
+
+def lookup_times(torch, kvs, vals, q, check, what):
+    """The lookup kernel at one shape: held against its plain version (exact),
+    then timed back to back, device only (a replayed graph), and its plain
+    version. Bytes of the bound: the queries and both outputs once, and each
+    distinct key and value the searches read once; beside it, the same reads
+    counted in whole 32-byte sectors. Operations: one compare per probe and
+    per match check. Returns the row's (ms, plain_ms, library_ms, bytes, ops,
+    also)."""
+    from repro_torch.kernels import lsm_lookup
+
+    check("fused_lookup", lambda: lsm_lookup.fused_lookup_runs(kvs, vals, q),
+          lambda: lsm_lookup.fused_lookup_plain(kvs, vals, q))
+    ms = time_ms(torch, lambda: lsm_lookup.fused_lookup_runs(kvs, vals, q), iters=20)
+    device = graph_ms(torch, lambda: lsm_lookup.fused_lookup_runs(kvs, vals, q))
+    plain = time_ms(torch, lambda: lsm_lookup.fused_lookup_plain(kvs, vals, q), iters=3)
+    nq = q.shape[0]
+    read, sectors, probes = lookup_footprint(torch, kvs, vals, q)
+    elem_bound = bound(12 * nq + 4 * read, probes)[0]
+    sector_bound = bound(12 * nq + 32 * sectors, probes)[0]
+    log(f"  lookup footprint, {what}: {probes} probes and checks, {read} distinct elements read in {sectors} "
+        f"32-byte sectors; bound {elem_bound:.5f} ms by elements, {sector_bound:.5f} ms by sectors")
+
+    also = [dict(what=f"{what}, {nq} queries: device only (graph of 20 launches); bound by 32-byte sectors",
+                 ms=None, device_ms=device, bound_ms=elem_bound, sector_bound_ms=sector_bound, sectors=sectors)]
+    return ms, plain, None, 12 * nq + 4 * read, probes, also
+
+
 def kernel_rows(torch, d, q_lookup, k1, errs, launches):
     """Per kernel, at the main path's shapes and on its final state: hold the
     kernel against its plain version once more (exact), then time the kernel,
@@ -706,35 +801,31 @@ def kernel_rows(torch, d, q_lookup, k1, errs, launches):
     log("  launch path, host us per call (two turns each): " + "; ".join(
         f"{name} {', '.join(f'{x:.2f}' for x in v)}" for name, v in us.items()))
 
-    # Lookup: the lookup queries against every run, newest first; a query
-    # stops at the first run holding its key. Bytes: queries and both outputs
-    # once, each key the searches and match checks read once, and each value
-    # a hit reads once. Operations: one compare per probe and per match check.
-    check("fused_lookup", lambda: lsm_lookup.fused_lookup_runs(kvs, vals, q_lookup),
-          lambda: lsm_lookup.fused_lookup_plain(kvs, vals, q_lookup))
-    ms = time_ms(torch, lambda: lsm_lookup.fused_lookup_runs(kvs, vals, q_lookup), iters=20)
-    plain = time_ms(torch, lambda: lsm_lookup.fused_lookup_plain(kvs, vals, q_lookup), iters=3)
-    nq = q_lookup.shape[0]
-    active = torch.ones(nq, dtype=torch.bool, device=q_lookup.device)
-    read = probes = 0
-    for kv in kvs:
-        n = kv.shape[0]
-        if n == 0:
-            continue
-        idx, seen, p = search_footprint(torch, kv, q_lookup, active)
-        ends = active & (idx < n)
-        seen[idx[ends]] = True
-        hit = ends & ((kv[idx.clamp(max=n - 1)] >> 1) == q_lookup)
-        read += int(seen.sum()) + torch.unique(idx[hit]).numel()
-        probes += p + int(ends.sum())
-        active &= ~hit
-    got_kv, _ = lsm_lookup.fused_lookup_runs(kvs, vals, q_lookup)
-    require(torch.equal(~active, (got_kv >> 1) == q_lookup), "lookup footprint replay differs")
-    log(f"  lookup footprint: {probes} probes and checks, {read} distinct elements read of {total}")
+    # Lookup: the lookup queries against every run, newest first, as phase 4
+    # left them after cleanup (every level a slice of one key range); beside
+    # it, device only (a replayed graph). The single-run sorted-array line is
+    # added after phase 6, on its data.
     row("fused_lookup", "src/repro_torch/csrc/fused_lookup.cu", "src/repro/kernels/lsm_lookup.py:179",
-        ms, plain, None, 12 * nq + 4 * read, probes)
+        *lookup_times(torch, kvs, vals, q_lookup, check, f"{len(kvs)} runs, {total} slots"))
     log_rows(rows)
     return rows
+
+
+def sa_lookup_line(torch, device, sa_d, rows, errs, seed):
+    """The lookup row at the sorted array's shape (one run of capacity 2^27
+    slots, phase 6's final state): 2^20 queries, half of them its keys."""
+    st = sa_d.state
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 3)
+    q = lookup_queries(torch, gen, [st.key_vars[: int(st.n)]], MAX_USER_KEY + 1, 1 << 20, device)
+    ms, plain, _, nbytes, ops, also = lookup_times(torch, [st.key_vars], [st.values], q, checker(torch, errs),
+                                                   f"the sorted array's one run of {st.key_vars.shape[0]} slots")
+    also[0].update(ms=ms, plain_ms=plain, bound_ms=bound(nbytes, ops)[0])
+    r = next(r for r in rows if r["name"] == "fused_lookup")
+    r["also"] += also
+    r["max_abs_err"] = errs["fused_lookup"]
+    log(f"phase 5 fused_lookup, sorted array's shape: {ms:.4f} ms back to back, {also[0]['device_ms']:.4f} device only "
+        f"(bound {also[0]['bound_ms']:.5f}, by sectors {also[0]['sector_bound_ms']:.5f}, plain {plain:.4f})")
 
 
 def profile(torch, what, fn, top=5, show=()):
@@ -1216,6 +1307,8 @@ def main() -> int:
     profile(torch, f"count of {k1.shape[0]} windows of 1024 keys",
             lambda: d.count(k1, k1 + 1023, QueryPlan(max_candidates=1024, max_results=512)), top=10,
             show=("bounds_runs_kernel", "radixSort"))
+    profile(torch, f"lookup of {q_lookup.shape[0]} queries", lambda: d.lookup(q_lookup), top=10,
+            show=("fused_lookup_kernel", "bucket_count_kernel", "bucket_scatter_kernel"))
     keys = dev_tensor(torch, rng.integers(0, MAX_USER_KEY + 1, 1 << 20).astype(np.int32), device)
     d = profile(torch, f"insert of {keys.shape[0]} lanes", lambda: d.insert(keys, keys % 1009))
     log(f"phase 5 kernel timing: {time.perf_counter() - t0:.2f} s")
@@ -1234,6 +1327,7 @@ def main() -> int:
         r["launches"] = launches[r["name"]]
     t0 = time.perf_counter()
     profile_direct(torch, device, lsm_d, sa_d, b, 16, args.seed)
+    sa_lookup_line(torch, device, sa_d, rows, errs, args.seed)
     del lsm_d, sa_d
     torch.cuda.empty_cache()
     rows += slice_kernel_rows(torch, device, bulk_keys, bulk_vals, b, capacity, errs, launches)

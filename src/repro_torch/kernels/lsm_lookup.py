@@ -11,9 +11,18 @@ at once; the bound kernels run the same binary search, one lane a query.
 The TPU kernels compare every query with every key (O(q * n)), which a TPU
 streams at its memory rate; on Hopper one search per query and run
 does the same job in O(q log n) loads, as the paper does it (§4.2).
+
+The lookup kernel starts every run's search in a sample of the run held in
+shared memory (`sample_layout` places the samples of all runs in one budget),
+advances the searches of two runs of a query at once and, for many queries,
+takes the queries in order of their keys' top bits; `lookup_grid` sizes its
+persistent grid.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -28,8 +37,17 @@ BOUND_KERNEL = Kernel(
 )
 LOOKUP_KERNEL = Kernel(
     "fused_lookup.cu", "repro_fused_lookup",
-    [P, P, P, I32, P, I64, P, P, P],  # kv[], val[], n[], k, q, nq, out_kv, out_val, stream
+    # kv[], val[], n[], k, layout, total, q, nq, blocks, scratch, out_kv, out_val, stream
+    [P, P, P, I32, P, I32, P, I64, I32, P, P, P, P],
 )
+
+# Shared memory for the samples of every run in one lookup block, in int32
+# slots: 32 KB (budgets of 2^12 to 3 * 2^14 slots swept on the H100: no
+# larger one was faster). The kernel takes at most 48 KB.
+SAMPLE_INTS = 1 << 13
+# Resident lookup blocks an SM: two of 512 threads (a sweep of 1024 to 2048
+# threads an SM on the H100 set it: PERF.md).
+LOOKUP_BLOCKS_PER_SM = 2
 
 
 def search_plain(keys, queries, *, shift: int, upper: bool) -> torch.Tensor:
@@ -92,6 +110,48 @@ def bounds_runs(runs_kv, k1, k2, *, shift: int = 1):
     return out[0], out[1]
 
 
+def sample_layout(lengths, budget: int = SAMPLE_INTS):
+    """Where the lookup kernel keeps the samples of each run in shared memory
+    -> (lg, count, off, total), one entry per run.
+
+    Every run gets at most `per_run` slots, the largest power of two <=
+    budget / len(lengths): its keys at positions j << lg (lg the least that
+    fits, 0 for a run that fits whole), then its last key. An empty run gets
+    none. The runs' slots follow each other from slot 0; `total` is their sum.
+    """
+    per_run = 1 << ((budget // len(lengths)).bit_length() - 1)
+    if per_run < 2:
+        raise ValueError(f"a sample budget of {budget} slots is too small for {len(lengths)} runs")
+    lg, count, off, total = [], [], [], 0
+    for n in lengths:
+        shift = 0
+        while n and ((n - 1) >> shift) + 2 > per_run:
+            shift += 1
+        lg.append(shift)
+        count.append(((n - 1) >> shift) + 2 if n else 0)
+        off.append(total)
+        total += count[-1]
+    return lg, count, off, total
+
+
+@functools.lru_cache(maxsize=64)
+def _layout_arg(lengths: tuple, budget: int):
+    """`sample_layout` as the kernel takes it: int32 [lg..., count..., off...], and total."""
+    lg, count, off, total = sample_layout(lengths, budget)
+    return (ctypes.c_int * (3 * len(lengths)))(*lg, *count, *off), total
+
+
+def lookup_grid(nq: int, threads: int, sms: int) -> int:
+    """Persistent blocks of the lookup kernel: LOOKUP_BLOCKS_PER_SM on each
+    of `sms` SMs, fewer when the queries fill fewer."""
+    return max(1, min(-(-nq // threads), LOOKUP_BLOCKS_PER_SM * sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def fused_lookup_plain(runs_kv, runs_val, query_keys):
     """Newest-first per-run binary search; first run whose lower-bound element
     has the query's original key wins."""
@@ -126,9 +186,19 @@ def fused_lookup_runs(runs_kv, runs_val, query_keys):
     if query_keys.device.type == "cpu":
         return fused_lookup_plain(runs_kv, runs_val, query_keys)
     device = check_cuda_int32("fused_lookup_runs", query_keys, *runs_kv, *runs_val)
-    nq = query_keys.shape[0]
-    out_kv = torch.empty(nq, dtype=torch.int32, device=device)
-    out_val = torch.empty(nq, dtype=torch.int32, device=device)
     kvp, valp, n = run_pointers(runs_kv, runs_val)
-    LOOKUP_KERNEL.launch(device, kvp, valp, n, k, query_keys.data_ptr(), nq, out_kv.data_ptr(), out_val.data_ptr())
-    return out_kv, out_val
+    if max(n) >= 1 << 31:
+        raise ValueError("fused_lookup_runs takes int32 positions; a run of 2^31 elements or more is too long")
+    layout, total = _layout_arg(tuple(n), SAMPLE_INTS)
+    nq = query_keys.shape[0]
+    blocks = lookup_grid(nq, LOOKUP_KERNEL.constant("repro_lookup_threads"), _sm_count(device.index))
+    out = torch.empty((2, nq), dtype=torch.int32, device=device)
+    # The kernel's scratch: the queries in bucket order (2 * nq, from
+    # repro_lookup_bucket_min queries on), the samples (total), the bucket
+    # counts and cursors (2 * buckets).
+    order = 2 * nq if nq >= LOOKUP_KERNEL.constant("repro_lookup_bucket_min") else 0
+    scratch = torch.empty(order + total + 2 * LOOKUP_KERNEL.constant("repro_lookup_buckets"), dtype=torch.int32,
+                          device=device)
+    LOOKUP_KERNEL.launch(device, kvp, valp, n, k, layout, total, query_keys.data_ptr(), nq, blocks,
+                         scratch.data_ptr(), out[0].data_ptr(), out[1].data_ptr())
+    return out[0], out[1]

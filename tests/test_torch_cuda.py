@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.kernels import bitonic_sort, lsm_lookup, merge_path
 from torch_cases import (
-    MAX_USER_KEY, MERGE_CASES, PAIR_LENGTHS, QUERY_EDGES, SORT_NS, eq, lookup_case, merge_pair, runs_np,
+    LOOKUP_CASES, MAX_USER_KEY, MERGE_CASES, PAIR_LENGTHS, QUERY_EDGES, SORT_NS, eq, lookup_case, merge_pair, runs_np,
     sort_case, sorted_run, t,
 )
 
@@ -111,6 +111,36 @@ def test_cuda_fused_lookup_matches_plain(cuda):
     exp = lsm_lookup.fused_lookup_runs([t(kv) for kv, _ in runs], [t(v) for _, v in runs], t(q))
     eq(got[0].cpu(), exp[0])
     eq(got[1].cpu(), exp[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["1000", "below", "above"])  # of the fewest queries taken in bucket order
+@pytest.mark.parametrize("case", range(len(LOOKUP_CASES)))
+def test_cuda_lookup_cases_match_plain(cuda, case, side):
+    bucket_min = lsm_lookup.LOOKUP_KERNEL.constant("repro_lookup_bucket_min")
+    nq = {"1000": 1000, "below": bucket_min - 1, "above": bucket_min + 3}[side]
+    lengths, key_hi = LOOKUP_CASES[case]
+    runs, q = lookup_case(100 + case, lengths, key_hi, nq)
+    kvs, vals = [t(kv) for kv, _ in runs], [t(v) for _, v in runs]
+    got = lsm_lookup.fused_lookup_runs([x.to(cuda) for x in kvs], [x.to(cuda) for x in vals], t(q).to(cuda))
+    exp = lsm_lookup.fused_lookup_plain(kvs, vals, t(q))
+    eq(got[0].cpu(), exp[0])
+    eq(got[1].cpu(), exp[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [4097, 1 << 18])
+def test_cuda_lookup_stride_crossing_segments(cuda, nq):
+    """One run of 2^22 slots over 64 keys: every equal-key segment (mixed
+    status bits) spans ~2^16 slots, many sample strides of the kernel."""
+    rng = np.random.default_rng(nq)
+    kv, val = sorted_run(rng, 1 << 22, 64, placebo_tail=1 << 18)
+    q = np.concatenate([rng.integers(-1, 67, nq - len(QUERY_EDGES)), QUERY_EDGES]).astype(np.int32)
+    got = lsm_lookup.fused_lookup_runs([t(kv).to(cuda)], [t(val).to(cuda)], t(q).to(cuda))
+    exp = lsm_lookup.fused_lookup_plain([t(kv)], [t(val)], t(q))
+    eq(got[0].cpu(), exp[0])
+    eq(got[1].cpu(), exp[1])
+    assert ((exp[0] >> 1 == t(q)) & (exp[0] & 1 == 0)).any()  # tombstone hits
 
 
 @pytest.mark.cuda

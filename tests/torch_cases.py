@@ -73,6 +73,21 @@ def eq(got, exp):
     np.testing.assert_array_equal(np.asarray(got), np.asarray(exp))
 
 
+# Multi-run lookup shapes, (run lengths newest first, key_hi): tie-heavy runs
+# far longer than a sample stride of the lookup kernel (equal-key segments
+# across sample boundaries), runs shorter than a stride and of lengths no
+# multiple of one, empty runs, one run, MAX_RUNS = 32 runs.
+LOOKUP_CASES = [
+    ([5000, 3, 0, 4097, 1, 20000], 7),
+    ([1 << 14], 3),
+    ([1 << 14], 1 << 20),
+    ([0, 0, 1000, 0], 50),
+    ([17] * 32, 9),
+    ([4095, 4097, 1234, 1, 0, 777] * 5 + [3, 9], 1000),
+    ([1 << 12, 1 << 13, 1 << 14, 1 << 15], 1 << 22),
+]
+
+
 def lookup_case(seed, lengths, key_hi, nq):
     rng = np.random.default_rng(seed)
     runs = [sorted_run(rng, n, key_hi, placebo_tail=n // 4) for n in lengths]
