@@ -45,7 +45,22 @@ Phases, one line each with its seconds:
      cleanup and size; a sorted array of capacity 2^27 bulk-built from the
      same keys, then 64 facade update calls (recency rule) and 64 direct
      batches (paper rule), and the same queries. Every result is held exactly
-     against an oracle built on the card; the update rates are printed.
+     against an oracle built on the card; the update rates are printed;
+  7. the `DictionaryServer` at full width (b = 2^16, capacity 2^27, L = 12):
+     a `resident` tenant filled with 2^26 unique keys in 64 updates of 2^20
+     lanes, then 4096 tenants replaying a `mixed` trace of 2^16 events (decode
+     trickles, prefill bursts, eviction storms: all four op kinds) through
+     `replay_server` with a step every 4096 ops, one more step under the
+     profiler, and a cleanup; every ticket held against per-tenant dict
+     oracles in trace order, and the end state (every key the traffic
+     touched, 2^20 resident keys) before and after the cleanup;
+  8. the cuckoo baseline at Table 3's protocol: phase 6's 2^26 unique keys
+     bulk-built at load 0.8 in at most 100 rounds, then 2^20 lookups of
+     keys all present and 2^20 of keys all absent, exact;
+  9. the dedup pipeline: 16 steps of 4096 documents of 2048 tokens into an
+     LSM of b = 4096 and 2^28 slots, then step 0's batch replayed (every
+     document a duplicate), duplicates, tokens and the index held against a
+     host set of the hashes seen.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before it. Without a CUDA device, or without the repository's src/ beside
 it, the script exits non-zero and prints no result.
@@ -828,7 +843,7 @@ def sa_lookup_line(torch, device, sa_d, rows, errs, seed):
         f"(bound {also[0]['bound_ms']:.5f}, by sectors {also[0]['sector_bound_ms']:.5f}, plain {plain:.4f})")
 
 
-def profile(torch, what, fn, top=5, show=()):
+def profile(torch, what, fn, top=5, show=(), phase=5):
     """`fn()` under torch.profiler: wall time, device busy time (the sum of
     kernel times on the one stream), the `top` kernels and the time and busy
     share of the kernels named in `show`. Returns fn's result."""
@@ -843,7 +858,7 @@ def profile(torch, what, fn, top=5, show=()):
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_us = sum(e.self_device_time_total for e in kernels)
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
-    log(f"phase 5 profile: {what}, wall {wall_us / 1e3:.2f} ms, device busy "
+    log(f"phase {phase} profile: {what}, wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms, idle share {1 - busy_us / wall_us:.3f}; top kernels: "
         + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in ranked))
     for name in show:
@@ -1224,6 +1239,330 @@ def merge_passes(torch, fn, what, bound_ms):
                 merge_ms=t["merge_tiles_kernel"], bound_ms=bound_ms)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the DictionaryServer, its fill and multi-tenant traffic
+# ---------------------------------------------------------------------------
+
+
+def resident_value(keys):
+    """The value phase 7 writes for a key of its `resident` tenant."""
+    return ((keys.astype(np.int64) * 7 + 3) % (1 << 30)).astype(np.int32)
+
+
+def check_tickets(trace, results, oracles):
+    """Apply `trace` to per-tenant dict oracles in trace order (each tenant's
+    program order, as tenant extents are disjoint) and hold every ticket's
+    result against them: lookup found and values, count counts and ok,
+    range keys, values, counts and ok. Returns the keys each tenant touched."""
+    touched = {}
+    for i, (op, res) in enumerate(zip(trace, results)):
+        o = oracles.setdefault(op.tenant, {})
+        seen = touched.setdefault(op.tenant, set())
+        if op.kind == "update":
+            require(res == len(op.keys), f"op {i}: update resolved to {res}")
+            for k, v, dl in zip(op.keys.tolist(), op.values.tolist(), op.is_delete.tolist()):
+                if dl:
+                    o.pop(k, None)
+                else:
+                    o[k] = v
+            seen.update(op.keys.tolist())
+        elif op.kind == "lookup":
+            found, vals = res
+            keys = op.keys.tolist()
+            require(found.tolist() == [k in o for k in keys], f"op {i}: lookup found differs")
+            require(vals.tolist() == [o.get(k, 0) for k in keys], f"op {i}: lookup values differ")
+            seen.update(keys)
+        else:
+            k1, k2 = int(op.k1[0]), int(op.k2[0])
+            live = sorted(k for k in o if k1 <= k <= k2)
+            if op.kind == "count":
+                counts, ok = res
+                require(counts.tolist() == [len(live)] and ok.tolist() == [True], f"op {i}: count differs")
+            else:
+                rk, rv, rc, rok = res
+                pad = op.max_results - len(live)
+                require(pad >= 0 and rc.tolist() == [len(live)] and rok.tolist() == [True],
+                        f"op {i}: range counts differ")
+                require(rk[0].tolist() == live + [PLACEBO_KEY] * pad, f"op {i}: range keys differ")
+                require(rv[0].tolist() == [o[k] for k in live] + [0] * pad, f"op {i}: range values differ")
+    return touched
+
+
+def check_end_state(srv, oracles, touched, sample, what):
+    """Look up, through the server, every key each tenant touched and the
+    sampled resident keys; hold them against the oracles."""
+    tickets = {name: srv.submit_lookup(name, np.fromiter(sorted(keys), np.int64, len(keys)))
+               for name, keys in touched.items()}
+    res_ticket = srv.submit_lookup("resident", sample)
+    srv.step()
+    for name, t in tickets.items():
+        o = oracles[name]
+        keys = sorted(touched[name])
+        found, vals = t.result()
+        require(found.tolist() == [k in o for k in keys] and vals.tolist() == [o.get(k, 0) for k in keys],
+                f"{what}: tenant {name} differs from its oracle")
+    found, vals = res_ticket.result()
+    require(bool(found.all()) and np.array_equal(vals, resident_value(sample)), f"{what}: resident keys differ")
+
+
+def drive_server(torch, device, seed, *, b, capacity, log2_resident, fill_calls, tenants, key_space, events,
+                 step_every, n_sample, max_candidates):
+    """The DictionaryServer on the card: a `resident` tenant filled with
+    2^log2_resident unique keys in `fill_calls` updates (a step after each),
+    then `tenants` tenants replaying a `mixed` trace of `events` events
+    through `replay_server`, one more profiled step of a second trace, and a
+    cleanup; every ticket and the end state before and after the cleanup held
+    against per-tenant oracles. Returns a rates dict."""
+    from repro_torch.api import QueryPlan
+    from repro_torch.serve import DictionaryServer, ServerConfig, make_trace
+    from repro_torch.serve.traffic import replay_server
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 3)
+    rates = {}
+    # The auto-sized plan of a dictionary this large would give every count
+    # and range window a tile of capacity / 4 candidates; trace windows span
+    # at most 32 keys, so 1024 candidates hold every version of them.
+    srv = DictionaryServer(ServerConfig(backend="lsm", batch_size=b, capacity=capacity, device=device,
+                                        default_plan=QueryPlan(max_candidates=max_candidates)))
+    n_res = 1 << log2_resident
+    srv.register_tenant("resident", key_space=2 * n_res)
+    res_keys = torch.randperm(2 * n_res, generator=gen, device=device)[:n_res].to(torch.int32).cpu().numpy()
+    lanes = n_res // fill_calls
+    sync()
+    t0 = time.perf_counter()
+    for c in range(fill_calls):
+        keys = res_keys[c * lanes:(c + 1) * lanes]
+        srv.submit_update("resident", keys, resident_value(keys))
+        srv.step()
+    sync()
+    rates["fill_s"] = time.perf_counter() - t0
+    rates["fill_M_elem_per_s"] = n_res / rates["fill_s"] / 1e6
+    require(srv.pending_estimate() == srv.dictionary.pending(), "pending model differs from the buffer")
+    log(f"phase 7 fill: {n_res} unique keys of tenant 'resident' in {fill_calls} updates of {lanes} lanes, "
+        f"{rates['fill_s']:.3f} s, {rates['fill_M_elem_per_s']:.3f} M elem/s; r = {srv.dictionary.state.r}, "
+        f"L = {srv.dictionary.state.num_levels}, flushes {srv.stats.flushes}")
+
+    t0 = time.perf_counter()
+    names, trace = make_trace("mixed", num_tenants=tenants, key_space=key_space, events=events, seed=seed,
+                              window=32)
+    _, more = make_trace("mixed", num_tenants=tenants, key_space=key_space, events=step_every, seed=seed + 1,
+                         window=32)
+    more = more[:step_every]
+    for name in names:
+        srv.register_tenant(name, key_space=key_space)
+    log(f"phase 7 traffic: {len(trace)} ops of {tenants} tenants ({events} events), made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    before = srv.stats.as_dict()
+    sync()
+    t0 = time.perf_counter()
+    results = replay_server(srv, trace, step_every=step_every)
+    rates["replay_s"] = time.perf_counter() - t0
+    n_lanes = sum(op.lanes for op in trace)
+    rates["replay_ops_per_s"] = len(trace) / rates["replay_s"]
+    rates["replay_lanes_per_s"] = n_lanes / rates["replay_s"]
+    after = srv.stats.as_dict()
+    steps = after["device_steps"] - before["device_steps"]
+    log(f"phase 7 replay: {len(trace)} ops, {n_lanes} lanes, step every {step_every} ops, {rates['replay_s']:.3f} s: "
+        f"{rates['replay_ops_per_s']:.1f} ops/s, {rates['replay_lanes_per_s']:.1f} lanes/s; {steps} device steps, "
+        f"{len(trace) / steps:.2f} ops per device step")
+
+    submit = {"update": lambda op: srv.submit_update(op.tenant, op.keys, op.values, op.is_delete),
+              "lookup": lambda op: srv.submit_lookup(op.tenant, op.keys),
+              "count": lambda op: srv.submit_count(op.tenant, op.k1, op.k2),
+              "range": lambda op: srv.submit_range(op.tenant, op.k1, op.k2, op.max_results)}
+    tickets = [submit[op.kind](op) for op in more]
+    what = f"one server step of {len(more)} ops"
+    if device.type == "cuda":
+        profile(torch, what, srv.step, top=6, show=("kway_merge_kernel", "bounds_runs_kernel", "fused_lookup_kernel",
+                                                    "radixSort"), phase=7)
+    else:
+        srv.step()
+    results_more = [t.result() for t in tickets]
+    log(f"phase 7 stats: {json.dumps(srv.stats.as_dict())}")
+
+    t0 = time.perf_counter()
+    oracles = {}
+    touched = check_tickets(trace + more, results + results_more, oracles)
+    sample = res_keys[torch.randint(0, n_res, (n_sample,), generator=gen, device=device).cpu().numpy()]
+    check_end_state(srv, oracles, touched, sample, "before cleanup")
+    log(f"phase 7 check: {len(trace) + len(more)} tickets and the end state of {len(touched)} tenants and "
+        f"{n_sample} resident keys equal to the oracles, {time.perf_counter() - t0:.2f} s")
+    sync()
+    t0 = time.perf_counter()
+    srv.cleanup()
+    sync()
+    rates["cleanup_s"] = time.perf_counter() - t0
+    check_end_state(srv, oracles, touched, sample, "after cleanup")
+    require(not srv.dictionary.overflowed(), "overflow latched")
+    log(f"phase 7 cleanup: {rates['cleanup_s']:.4f} s, r = {srv.dictionary.state.r}; the end state still equals "
+        f"the oracles")
+    return rates
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the cuckoo baseline at Table 3's protocol
+# ---------------------------------------------------------------------------
+
+
+def drive_cuckoo(torch, device, seed, keys, vals, *, n_lookups, reps):
+    """Bulk-build the cuckoo backend from `keys` (unique), then time lookups
+    of keys all present and all absent, each result held against the keys.
+    If the build rule cannot place every key in its 100 rounds, n is halved
+    until it can (the cut is logged). Returns a rates dict."""
+    from repro_torch.api import Dictionary
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 4)
+    rates = {}
+    n = keys.numel()
+    while True:
+        d = Dictionary.create("cuckoo", capacity=n, load_factor=0.8, max_rounds=100, device=device)
+        sync()
+        t0 = time.perf_counter()
+        d = d.bulk_build(keys[:n], vals[:n])
+        sync()
+        rates["build_s"] = time.perf_counter() - t0
+        if not d.overflowed():
+            break
+        log(f"phase 8: the build rule left keys of {n} unplaced after 100 rounds; halving n")
+        n //= 2
+        require(n >= n_lookups, "the cuckoo build failed at every size")
+        del d
+    rates["n"] = n
+    rates["rounds"] = d.state.rounds
+    rates["build_M_elem_per_s"] = n / rates["build_s"] / 1e6
+    size = int(d.size())
+    require(size == n, f"cuckoo size {size} != {n}")
+    log(f"phase 8 build: {n} keys into {d.state.slot_keys.numel()} slots (load 0.8) in {rates['rounds']} rounds, "
+        f"{rates['build_s']:.3f} s, {rates['build_M_elem_per_s']:.3f} M elem/s")
+
+    idx = torch.randint(0, n, (n_lookups,), generator=gen, device=device)
+    present, present_vals = keys[idx], vals[idx]
+    ordered = torch.sort(keys[:n]).values
+    cand = torch.randint(0, MAX_USER_KEY + 1, (2 * n_lookups,), generator=gen, device=device, dtype=torch.int32)
+    hit = ordered[torch.searchsorted(ordered, cand).clamp(max=n - 1)] == cand
+    absent = cand[~hit][:n_lookups]
+    require(absent.numel() == n_lookups, "too few absent keys")
+    for name, q, exp_found, exp_vals in (("present", present, True, present_vals),
+                                          ("absent", absent, False, torch.zeros_like(absent))):
+        found, got = d.lookup(q)
+        require(bool((found == exp_found).all()) and torch.equal(got, exp_vals), f"cuckoo {name} lookups differ")
+        sync()
+        t0 = time.perf_counter()
+        out = [d.lookup(q) for _ in range(reps)]
+        sync()
+        dt = time.perf_counter() - t0
+        for found, got in out:
+            require(bool((found == exp_found).all()) and torch.equal(got, exp_vals), f"cuckoo {name} lookups differ")
+        rates[f"lookup_{name}_M_q_per_s"] = reps * n_lookups / dt / 1e6
+        log(f"phase 8 lookup, {n_lookups} keys {name}: {reps} calls after a warm-up, {dt:.4f} s, "
+            f"{rates[f'lookup_{name}_M_q_per_s']:.2f} M q/s; equal to the oracle")
+    return rates
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the dedup pipeline
+# ---------------------------------------------------------------------------
+
+
+def host_doc_hash(tokens):
+    """The reference's rolling hash as it is written, h = h * 31 + token over
+    the columns in uint32, on the host (numpy uint32 arithmetic wraps)."""
+    h = np.zeros(tokens.shape[0], np.uint32)
+    cols = tokens.astype(np.uint32)
+    for j in range(tokens.shape[1]):
+        h = h * np.uint32(31) + cols[:, j]
+    return (h % np.uint32(MAX_USER_KEY)).astype(np.int32)
+
+
+def host_batch(seed, shard, step, batch, seq_len, vocab):
+    """The reference's make_batch tokens, generated here with numpy."""
+    rng = np.random.default_rng((seed, shard, step))
+    toks = (rng.zipf(1.3, size=(batch, seq_len + 1)) % vocab).astype(np.int32)
+    return toks[:, :-1], toks[:, 1:]
+
+
+def drive_dedup(torch, device, seed, *, vocab, seq_len, batch, levels, steps):
+    """`steps` dedup steps of the pipeline, then step 0's batch replayed;
+    duplicates, tokens and the index's contents held against a host set of
+    the document hashes seen. Returns a rates dict."""
+    from repro_torch.core import queries
+    from repro_torch.data import pipeline
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    cfg = pipeline.PipelineConfig(vocab_size=vocab, seq_len=seq_len, batch_per_shard=batch, dedup_levels=levels,
+                                  seed=seed, device=device)
+    state = pipeline.pipeline_init(cfg)
+    seen = {}
+    total = 0
+    rates = {"make_s": 0.0, "dedup_s": 0.0}
+    order = list(range(steps)) + [0]
+    for i, step in enumerate(order):
+        sync()
+        t0 = time.perf_counter()
+        b = pipeline.make_batch(cfg, 0, step)
+        sync()
+        t1 = time.perf_counter()
+        if device.type == "cuda" and i == len(order) - 2:  # the last fresh step
+            state, out, n_dup = profile(
+                torch, f"dedup_batch of {batch} documents onto r = {i}", lambda: pipeline.dedup_batch(
+                    cfg, state, b, 0, step), top=6, show=("fused_lookup_kernel", "block_sort_kernel",
+                                                          "kway_merge_kernel"), phase=9)
+        else:
+            state, out, n_dup = pipeline.dedup_batch(cfg, state, b, 0, step)
+        n_dup = int(n_dup)
+        rates["make_s"] += t1 - t0
+        rates["dedup_s"] += time.perf_counter() - t1
+        # The batch's tokens equal the reference generator's (the CPU tests
+        # pin make_batch); the oracle hashes them on the host.
+        tokens, labels = b["tokens"].cpu().numpy(), b["labels"].cpu().numpy()
+        exp_found = np.array([h in seen for h in host_doc_hash(tokens).tolist()])
+        if exp_found.any():
+            retry_t, retry_l = host_batch(seed, 0, step + (1 << 20), batch, seq_len, vocab)
+            tokens = np.where(exp_found[:, None], retry_t, tokens)
+            labels = np.where(exp_found[:, None], retry_l, labels)
+        require(n_dup == int(exp_found.sum()), f"step {i}: {n_dup} duplicates, expected {int(exp_found.sum())}")
+        require(np.array_equal(out["tokens"].cpu().numpy(), tokens) and
+                np.array_equal(out["labels"].cpu().numpy(), labels), f"step {i}: tokens differ")
+        for h in host_doc_hash(tokens).tolist():
+            seen[h] = step % (1 << 30)
+        total += n_dup
+    require(n_dup == batch, f"the replayed batch reported {n_dup} of {batch} documents as duplicates")
+    require(int(state.duplicates_seen) == total, f"duplicates_seen {int(state.duplicates_seen)} != {total}")
+    hashes = np.fromiter(seen, np.int32, len(seen))
+    q = torch.from_numpy(hashes).to(device)
+    found, vals = queries.lsm_lookup(pipeline._dedup_cfg(cfg), state.dedup_index, q)
+    require(bool(found.all()) and np.array_equal(vals.cpu().numpy(), np.array([seen[h] for h in hashes.tolist()])),
+            "the index differs from the hashes seen")
+    rng = np.random.default_rng(seed)
+    other = rng.integers(0, MAX_USER_KEY, 4 * batch).astype(np.int32)
+    other = other[~np.isin(other, hashes)]
+    found, _ = queries.lsm_lookup(pipeline._dedup_cfg(cfg), state.dedup_index, torch.from_numpy(other).to(device))
+    require(not bool(found.any()), "the index holds a hash never seen")
+    n_docs = len(order) * batch
+    step_s = rates["make_s"] + rates["dedup_s"]
+    rates["docs_per_s"] = n_docs / step_s
+    rates["tokens_per_s"] = n_docs * seq_len / step_s
+    log(f"phase 9 dedup: {len(order)} steps of {batch} documents of {seq_len} tokens (the last replays step 0: "
+        f"{n_dup} duplicates), {total} duplicates in all, index r = {state.dedup_index.r} of b = {batch}, "
+        f"L = {levels}; make_batch {rates['make_s']:.3f} s, dedup_batch {rates['dedup_s']:.3f} s: "
+        f"{rates['docs_per_s']:.1f} docs/s, {rates['tokens_per_s'] / 1e6:.3f} M tokens/s; equal to the host set of "
+        f"{len(seen)} hashes")
+    return rates
+
+
 def log_rows(rows):
     def fmt(x):
         return "none" if x is None else f"{x:.4f}"
@@ -1333,6 +1672,21 @@ def main() -> int:
     rows += slice_kernel_rows(torch, device, bulk_keys, bulk_vals, b, capacity, errs, launches)
     log(f"phase 5 kernel timing of the batch sort and the pairwise merge: {time.perf_counter() - t0:.2f} s")
 
+    torch.cuda.empty_cache()
+    srv_rates, launches7 = drive(7, lambda: drive_server(
+        torch, device, args.seed, b=b, capacity=capacity, log2_resident=26, fill_calls=64, tenants=4096,
+        key_space=1 << 16, events=1 << 16, step_every=4096, n_sample=1 << 20, max_candidates=1024))
+    require(all(launches7[k] > 0 for k in staged_path), f"a kernel did not run on phase 7's path: {launches7}")
+    torch.cuda.empty_cache()
+    ck_rates, _ = drive(8, lambda: drive_cuckoo(torch, device, args.seed, bulk_keys, bulk_vals, n_lookups=1 << 20,
+                                                reps=5))
+    del bulk_keys, bulk_vals
+    torch.cuda.empty_cache()
+    dedup_rates, launches9 = drive(9, lambda: drive_dedup(
+        torch, device, args.seed, vocab=32000, seq_len=2048, batch=4096, levels=16, steps=16))
+    require(all(launches9[k] > 0 for k in ("bitonic_sort", "merge_cascade", "fused_lookup")),
+            f"a kernel did not run on phase 9's path: {launches9}")
+
     log(f"rates ({card}): insert {rates['insert_M_elem_per_s']:.3f} M elem/s, "
         f"lookup {rates['lookup_M_q_per_s']:.3f} M q/s, count {rates['count_M_q_per_s']:.4f} M q/s, "
         f"range {rates['range_M_q_per_s']:.4f} M q/s, cleanup {rates['cleanup_s'] * 1e3:.1f} ms, "
@@ -1343,6 +1697,12 @@ def main() -> int:
         f"SA {r['sa_update_M_elem_per_s']:.3f} M elem/s, ratio "
         f"{r['lsm_update_M_elem_per_s'] / r['sa_update_M_elem_per_s']:.3f} (paper, K40c: 13.5 at 2^27); "
         f"SA facade calls {r['sa_facade_M_elem_per_s']:.3f} M elem/s")
+    log(f"phase 7-9 rates ({card}): server replay {srv_rates['replay_ops_per_s']:.1f} ops/s, "
+        f"{srv_rates['replay_lanes_per_s']:.1f} lanes/s, fill {srv_rates['fill_M_elem_per_s']:.3f} M elem/s; "
+        f"cuckoo build {ck_rates['build_M_elem_per_s']:.3f} M elem/s in {ck_rates['rounds']} rounds (n = "
+        f"{ck_rates['n']}), lookup present {ck_rates['lookup_present_M_q_per_s']:.2f} / absent "
+        f"{ck_rates['lookup_absent_M_q_per_s']:.2f} M q/s; dedup {dedup_rates['docs_per_s']:.1f} docs/s, "
+        f"{dedup_rates['tokens_per_s'] / 1e6:.3f} M tokens/s")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; total {time.perf_counter() - t_all:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))

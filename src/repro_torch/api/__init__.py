@@ -1,5 +1,6 @@
 """The `Dictionary` facade over the port's backends: the paper's GPU LSM
-("lsm") and its sorted-array baseline ("sorted_array").
+("lsm") and its two baselines, the sorted array ("sorted_array") and the
+static cuckoo hash ("cuckoo").
 
     from repro_torch.api import Dictionary
 

@@ -70,6 +70,18 @@ class Backend(abc.ABC):
         overlap; QueryPlan auto-sizing clamps to it."""
         return self.capacity
 
+    @property
+    def has_write_buffer(self) -> bool:
+        """Does this backend stage updates in a write buffer (flush and
+        pending are meaningful) rather than apply them at once? Serving
+        schedulers gate their occupancy and flush policies on it."""
+        return False
+
+    @property
+    def num_shards(self) -> int:
+        """Device partitions behind this backend (1: a single device)."""
+        return 1
+
     @classmethod
     @abc.abstractmethod
     def from_options(cls, **options) -> "Backend":
@@ -170,7 +182,6 @@ def register_backend(cls: Type[Backend]) -> Type[Backend]:
 # Backends of repro.api that this package does not have yet, with the
 # ROADMAP.md item that ports each.
 _NOT_YET_PORTED = {
-    "cuckoo": "ROADMAP.md queue A item 6 (core/cuckoo.py)",
     "lsm_sharded": "ROADMAP.md queue A item 10 (core/distributed.py)",
 }
 

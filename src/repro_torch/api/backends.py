@@ -1,7 +1,7 @@
-"""Built-in backends: the paper's GPU LSM ("lsm") and its sorted-array
-baseline ("sorted_array", §5.1). The cuckoo hash ("cuckoo") and the sharded
-LSM ("lsm_sharded") of repro.api.backends are later parts of the port
-(ROADMAP.md queue A, items 6 and 10); `Dictionary.create` refuses them."""
+"""Built-in backends: the paper's GPU LSM ("lsm") and its two baselines, the
+sorted array ("sorted_array") and the static cuckoo hash ("cuckoo", §5.1).
+The sharded LSM ("lsm_sharded") of repro.api.backends is a later part of the
+port (ROADMAP.md queue A, item 10); `Dictionary.create` refuses it."""
 
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch
 from repro_torch.api.backend import Backend, Capabilities, OccupancyStats, register_backend
 from repro_torch.api.plan import QueryPlan
 from repro_torch.core import cleanup, queries
+from repro_torch.core import cuckoo as ck
 from repro_torch.core import sorted_array as sa
 from repro_torch.core.lsm import (
     LSMConfig,
@@ -71,6 +72,10 @@ class LSMBackend(Backend):
     def max_query_candidates(self) -> int:
         # Levels plus the b write-buffer slots a query window can overlap.
         return self.cfg.capacity + self.cfg.batch_size
+
+    @property
+    def has_write_buffer(self) -> bool:
+        return True
 
     def init(self):
         return lsm_init(self.cfg, self.device)
@@ -192,3 +197,61 @@ class SortedArrayBackend(Backend):
 
     def overflowed(self, state) -> bool:
         return bool(state.n > self.cfg.capacity)
+
+
+@register_backend
+@dataclasses.dataclass(frozen=True)
+class CuckooBackend(Backend):
+    """Static cuckoo hash (CUDPP-style): O(1) lookups, bulk build only, no
+    ordered queries (the paper's Table 1 comparison)."""
+
+    name = "cuckoo"
+    caps = Capabilities(
+        supports_updates=False,
+        supports_deletes=False,
+        supports_ordered_queries=False,
+        supports_cleanup=False,
+    )
+
+    cfg: ck.CuckooConfig
+    declared_capacity: int
+    device: torch.device
+
+    @classmethod
+    def from_options(cls, *, device, capacity=None, load_factor=0.8, seed=0, max_rounds=100,
+                     batch_size=None, **extra):
+        if extra:
+            raise TypeError(f"unknown options for backend 'cuckoo': {sorted(extra)}")
+        del batch_size  # accepted for create() symmetry; meaningless here
+        cap = int(capacity) if capacity is not None else 1 << 20
+        table_size = max(int(cap / float(load_factor)), 1)
+        return cls(ck.CuckooConfig(table_size=table_size, max_rounds=int(max_rounds), seed=int(seed)),
+                   cap, torch.device(device))
+
+    @property
+    def batch_size(self) -> int:
+        return 1  # no incremental updates; the facade never splits for cuckoo
+
+    @property
+    def capacity(self) -> int:
+        return self.declared_capacity
+
+    def init(self):
+        m = self.cfg.table_size
+        return ck.CuckooTable(
+            slot_keys=torch.full((m,), ck.EMPTY, dtype=torch.int32, device=self.device),
+            slot_vals=torch.zeros(m, dtype=torch.int32, device=self.device),
+            build_ok=True,
+        )
+
+    def bulk_build(self, keys, values):
+        return ck.cuckoo_build(self.cfg, keys, values)
+
+    def lookup(self, state, keys):
+        return ck.cuckoo_lookup(self.cfg, state, keys)
+
+    def size(self, state):
+        return (state.slot_keys != ck.EMPTY).sum().to(torch.int32)
+
+    def overflowed(self, state) -> bool:
+        return not state.build_ok

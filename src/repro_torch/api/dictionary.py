@@ -140,7 +140,8 @@ class Dictionary:
                maintenance_budget: Optional[int] = None, device=None,
                **options) -> "Dictionary":
         """Empty dictionary. Options as in repro.api.Dictionary.create
-        (capacity, batch_size, num_levels), plus `device` (default: the card).
+        (capacity, batch_size, num_levels; for "cuckoo" load_factor, seed and
+        max_rounds), plus `device` (default: the card).
 
         `flush_threshold`: after every update, a write buffer holding >= this
         many staged elements is flushed. `maintenance_budget`: piggyback
@@ -187,8 +188,19 @@ class Dictionary:
         return self._backend.device
 
     @property
+    def num_shards(self) -> int:
+        """Device partitions behind this handle (1 unless the backend is sharded)."""
+        return self._backend.num_shards
+
+    @property
+    def buffered(self) -> bool:
+        """Does this backend stage updates in a write buffer (pending and
+        flush meaningful)? False for apply-at-once backends."""
+        return self._backend.has_write_buffer
+
+    @property
     def state(self):
-        """The underlying core state (LSMState or SAState)."""
+        """The underlying core state (LSMState, SAState or CuckooTable)."""
         return self._live()
 
     def __repr__(self) -> str:

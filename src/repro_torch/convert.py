@@ -1,9 +1,10 @@
-"""Carry LSM and sorted-array state across between this package and the JAX
-reference.
+"""Carry LSM, sorted-array and cuckoo state across between this package and
+the JAX reference.
 
 The exchange format is a mapping of numpy arrays with the field names of
 `repro.core.lsm.LSMState` (`key_vars` and `values` are sequences of one array
-per level) or `repro.core.sorted_array.SAState`, which is what
+per level), `repro.core.sorted_array.SAState` or
+`repro.core.cuckoo.CuckooTable`, which is what
 `jax.device_get(state)._asdict()` gives. Neither direction imports JAX: the
 caller converts on its side.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.cuckoo import CuckooConfig, CuckooTable
 from repro_torch.core.lsm import LSMConfig, LSMState
 from repro_torch.core.sorted_array import SAConfig, SAState
 
@@ -50,7 +52,8 @@ def lsm_state_from_numpy(cfg: LSMConfig, fields, device) -> LSMState:
 
 
 def _host(t) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    # A copy: a CPU tensor's .numpy() would alias state that is updated in place.
+    return t.detach().to("cpu", copy=True).numpy()
 
 
 def lsm_state_to_numpy(state: LSMState) -> dict:
@@ -87,3 +90,22 @@ def sa_state_to_numpy(state: SAState) -> dict:
     """Every `SAState` field as numpy, under the JAX reference's names and
     dtypes (int32 arrays and an int32 scalar)."""
     return dict(key_vars=_host(state.key_vars), values=_host(state.values), n=_host(state.n))
+
+
+def cuckoo_table_from_numpy(cfg: CuckooConfig, fields, device) -> CuckooTable:
+    """Build a `CuckooTable` on `device` from the JAX table's fields as numpy."""
+    for name in ("slot_keys", "slot_vals"):
+        if np.shape(fields[name]) != (cfg.table_size,):
+            raise ValueError(f"{name} must hold {cfg.table_size} slots, got {np.shape(fields[name])}")
+    return CuckooTable(
+        slot_keys=_i32(fields["slot_keys"], device),
+        slot_vals=_i32(fields["slot_vals"], device),
+        build_ok=bool(fields["build_ok"]),
+    )
+
+
+def cuckoo_table_to_numpy(table: CuckooTable) -> dict:
+    """The reference's `CuckooTable` fields as numpy (int32 slot arrays and a
+    bool flag); the port's `rounds` is not one of them."""
+    return dict(slot_keys=_host(table.slot_keys), slot_vals=_host(table.slot_vals),
+                build_ok=np.bool_(table.build_ok))

@@ -241,3 +241,91 @@ def test_cuda_cascade_split_matches_plain(cuda, case):
         got = merge_path.cascade_split([x.to(cuda) for x in kvs], diags.to(cuda), compare_full=compare_full)
         exp = merge_path.cascade_split_plain(kvs, diags, shift=0 if compare_full else 1)
         eq(got.cpu(), exp)
+
+
+# -- the modules above the kernels: on the card against the same calls on the CPU
+
+
+def both_devices(fn, cuda):
+    """fn(device) on the card and on the CPU; every tensor of the results to the host."""
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu()
+        if isinstance(x, (tuple, list)):
+            return type(x)(host(y) for y in x)
+        return x
+    return host(fn(cuda)), host(fn(torch.device("cpu")))
+
+
+def assert_same(got, exp):
+    if isinstance(exp, torch.Tensor):
+        eq(got, exp)
+    elif isinstance(exp, np.ndarray):
+        assert got.dtype == exp.dtype
+        np.testing.assert_array_equal(got, exp)
+    elif isinstance(exp, (tuple, list)):
+        assert len(got) == len(exp)
+        for g, e in zip(got, exp):
+            assert_same(g, e)
+    else:
+        assert got == exp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,load,seed,max_rounds", [(1000, 0.8, 0, 100), (1 << 16, 0.8, 1, 100), (4000, 0.95, 1, 3)])
+def test_cuda_cuckoo_matches_cpu(cuda, n, load, seed, max_rounds):
+    from repro_torch.core import cuckoo
+
+    rng = np.random.default_rng(n)
+    keys = rng.choice(MAX_USER_KEY + 1, n, replace=False).astype(np.int32)
+    vals = rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32)
+    q = np.concatenate([keys, rng.integers(0, MAX_USER_KEY + 1, 1000), QUERY_EDGES]).astype(np.int32)
+    cfg = cuckoo.CuckooConfig(int(n / load), max_rounds, seed)
+
+    def run(device):
+        table = cuckoo.cuckoo_build(cfg, t(keys).to(device), t(vals).to(device))
+        return table.slot_keys, table.slot_vals, table.build_ok, table.rounds, cuckoo.cuckoo_lookup(cfg, table, t(q).to(device))
+
+    got, exp = both_devices(run, cuda)
+    assert_same(got, exp)
+    assert exp[2] == (max_rounds == 100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [{"backend": "lsm", "num_levels": 8}, {"backend": "sorted_array", "capacity": 4096}])
+def test_cuda_server_trace_matches_cpu(cuda, opts):
+    from repro_torch.serve import traffic
+    from repro_torch.serve.server import DictionaryServer, ServerConfig
+
+    tenants, trace = traffic.make_trace("mixed", num_tenants=8, key_space=512, events=200, seed=5)
+
+    def run(device):
+        srv = DictionaryServer(ServerConfig(batch_size=64, device=device, **opts))
+        for name in tenants:
+            srv.register_tenant(name, key_space=512)
+        results = traffic.replay_server(srv, trace, step_every=32)
+        srv.cleanup()
+        end = [srv.submit_lookup(name, np.arange(512)).result() for name in tenants]
+        return results, end, [srv.stats.as_dict()], srv.pending_estimate()
+
+    got, exp = both_devices(run, cuda)
+    assert_same(got, exp)
+
+
+@pytest.mark.cuda
+def test_cuda_dedup_steps_match_cpu(cuda):
+    from repro_torch import convert
+    from repro_torch.data import pipeline
+
+    def run(device):
+        cfg = pipeline.PipelineConfig(vocab_size=512, seq_len=64, batch_per_shard=256, dedup_levels=6, device=device)
+        state, out = pipeline.pipeline_init(cfg), []
+        for step in (0, 1, 0):
+            state, batch, n_dup = pipeline.dedup_batch(cfg, state, pipeline.make_batch(cfg, 0, step), 0, step)
+            out += [batch["tokens"], batch["labels"], n_dup, state.duplicates_seen]
+        index = convert.lsm_state_to_numpy(state.dedup_index)
+        return out, [index[k] for k in sorted(index) if k not in ("key_vars", "values")], list(index["key_vars"])
+
+    got, exp = both_devices(run, cuda)
+    assert_same(got, exp)
+    assert int(exp[0][-2]) == 256
