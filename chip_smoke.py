@@ -60,7 +60,17 @@ Phases, one line each with its seconds:
   9. the dedup pipeline: 16 steps of 4096 documents of 2048 tokens into an
      LSM of b = 4096 and 2^28 slots, then step 0's batch replayed (every
      document a duplicate), duplicates, tokens and the index held against a
-     host set of the hashes seen.
+     host set of the hashes seen;
+ 10. the range-partitioned sharded LSM (`lsm_sharded`), four shards all on
+     this one card, run one after another: (a) b = 2^16 and capacity 2^27
+     per shard (L = 12), bulk-built from phase 6's 2^26 keys, then 256
+     facade updates of 2^18 lanes in phase 6's mix and a flush, 2^20
+     lookups, 2^14 count and range windows of 2^10 keys (1024 straddling
+     each shard boundary), maintain, cleanup and size, every result held
+     against an oracle on the card; (b) phase 7's server protocol over the
+     sharded dictionary, its resident keys spread over three shards and its
+     tenants over the last two. The launch counts of the four LSM kernels
+     on this path must be positive.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before it. Without a CUDA device, or without the repository's src/ beside
 it, the script exits non-zero and prints no result.
@@ -843,10 +853,11 @@ def sa_lookup_line(torch, device, sa_d, rows, errs, seed):
         f"(bound {also[0]['bound_ms']:.5f}, by sectors {also[0]['sector_bound_ms']:.5f}, plain {plain:.4f})")
 
 
-def profile(torch, what, fn, top=5, show=(), phase=5):
+def profile(torch, what, fn, top=5, show=(), phase=5, out=None):
     """`fn()` under torch.profiler: wall time, device busy time (the sum of
     kernel times on the one stream), the `top` kernels and the time and busy
-    share of the kernels named in `show`. Returns fn's result."""
+    share of the kernels named in `show`. Returns fn's result; the idle share
+    goes into `out["idle_share"]` when `out` is given."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -864,6 +875,8 @@ def profile(torch, what, fn, top=5, show=(), phase=5):
     for name in show:
         us = sum(e.self_device_time_total for e in kernels if name in e.key)
         log(f"  {name}: {us / 1e3:.4f} ms, {us / busy_us:.4f} of device busy")
+    if out is not None:
+        out["idle_share"] = 1 - busy_us / wall_us
     return res
 
 
@@ -970,6 +983,30 @@ def recency_prio(torch, dels):
     return prio.reshape(-1), (~dels).long().reshape(-1), (count - 1).bit_length() + lane_bits
 
 
+def mixed_batches(torch, gen, bulk_keys, count, width, first_value):
+    """`count` batches of `width` lanes: 30% new keys, 30% re-writes and 15%
+    deletes of bulk keys, and 25% in-batch duplicates of a key up to 16 lanes
+    earlier (half of them deletes). Values are distinct and positive.
+    Returns (keys, vals, dels) as [count, width] and the duplicate count."""
+    device = bulk_keys.device
+
+    def randint(hi, size):
+        return torch.randint(0, hi, (size,), generator=gen, device=device, dtype=torch.int32)
+
+    total = count * width
+    kind = torch.rand(total, generator=gen, device=device)
+    keys = torch.where(kind < 0.3, randint(MAX_USER_KEY + 1, total), bulk_keys[randint(bulk_keys.numel(), total).long()])
+    dels = (kind >= 0.6) & (kind < 0.75)
+    back = 1 + randint(16, total).long()
+    lanes = torch.arange(total, device=device)
+    dup = (kind >= 0.75) & (lanes % width >= back)
+    src = torch.where(dup, lanes - back, lanes)
+    keys = keys[src]
+    dels = torch.where(dup, torch.rand(total, generator=gen, device=device) < 0.5, dels)
+    vals = first_value + lanes.to(torch.int32)
+    return keys.view(count, width), vals.view(count, width), dels.view(count, width), int(dup.sum())
+
+
 def drive_slice(torch, device, seed, *, log2_bulk, b, capacity, lsm_batches, sa_calls, sa_batches,
                 n_lookups, n_windows):
     """Bulk build, direct paper-rule updates and queries on the LSM, then the
@@ -998,23 +1035,6 @@ def drive_slice(torch, device, seed, *, log2_bulk, b, capacity, lsm_batches, sa_
     bulk_vals = randint(1 << 30, n)
     bulk_status = torch.ones(n, dtype=torch.long, device=device)
     del cand
-
-    def batches(count, first_value):
-        """`count` batches of b lanes, flat: new keys, re-writes and deletes
-        of bulk keys, and in-batch duplicates of an earlier lane's key (half
-        of them deletes). Values are distinct and positive."""
-        total = count * b
-        kind = torch.rand(total, generator=gen, device=device)
-        keys = torch.where(kind < 0.3, randint(MAX_USER_KEY + 1, total), bulk_keys[randint(n, total).long()])
-        dels = (kind >= 0.6) & (kind < 0.75)
-        back = 1 + randint(16, total).long()
-        lanes = torch.arange(total, device=device)
-        dup = (kind >= 0.75) & (lanes % b >= back)
-        src = torch.where(dup, lanes - back, lanes)
-        keys = keys[src]
-        dels = torch.where(dup, torch.rand(total, generator=gen, device=device) < 0.5, dels)
-        vals = first_value + lanes.to(torch.int32)
-        return keys.view(count, b), vals.view(count, b), dels.view(count, b), int(dup.sum())
 
     rates = {}
     plan = QueryPlan(max_candidates=1024, max_results=512)
@@ -1046,7 +1066,7 @@ def drive_slice(torch, device, seed, *, log2_bulk, b, capacity, lsm_batches, sa_
         return d
 
     # --- LSM: bulk build, then direct updates under the paper's in-batch rule.
-    keys, vals, dels, n_dup = batches(lsm_batches, 1)
+    keys, vals, dels, n_dup = mixed_batches(torch, gen, bulk_keys, lsm_batches, b, 1)
     prio, status, bits = paper_rule_prio(torch, dels)  # the bulk build is older than every batch
     live, live_vals = oracle_live(
         torch, torch.cat([keys.reshape(-1), bulk_keys]), torch.cat([prio, torch.full((n,), 1 << bits, device=device)]),
@@ -1083,10 +1103,10 @@ def drive_slice(torch, device, seed, *, log2_bulk, b, capacity, lsm_batches, sa_
     # --- Sorted array: bulk build, facade calls (the later lane and call
     # win), then direct batches (the paper's rule), which are newest.
     t0 = time.perf_counter()
-    f_keys, f_vals, f_dels, f_dup = batches(sa_calls, 1 << 28)
+    f_keys, f_vals, f_dels, f_dup = mixed_batches(torch, gen, bulk_keys, sa_calls, b, 1 << 28)
     kind = torch.arange(sa_calls, device=device) % 3  # insert, delete, mixed update
     f_dels = torch.where((kind == 1)[:, None], True, torch.where((kind == 0)[:, None], False, f_dels))
-    e_keys, e_vals, e_dels, e_dup = batches(sa_batches, 1 << 29)
+    e_keys, e_vals, e_dels, e_dup = mixed_batches(torch, gen, bulk_keys, sa_batches, b, 1 << 29)
     # Newest first: the direct batches, then the facade calls, then the bulk build.
     e_prio, e_status, e_bits = paper_rule_prio(torch, e_dels)
     f_prio, f_status, f_bits = recency_prio(torch, f_dels)
@@ -1305,14 +1325,23 @@ def check_end_state(srv, oracles, touched, sample, what):
     require(bool(found.all()) and np.array_equal(vals, resident_value(sample)), f"{what}: resident keys differ")
 
 
+def describe(d):
+    """r and L of a handle's LSM state, per shard for a sharded one."""
+    st = d.state
+    if isinstance(st, tuple):
+        return f"r = {[s.r for s in st]} on {len(st)} shards, L = {st[0].num_levels}"
+    return f"r = {st.r}, L = {st.num_levels}"
+
+
 def drive_server(torch, device, seed, *, b, capacity, log2_resident, fill_calls, tenants, key_space, events,
-                 step_every, n_sample, max_candidates):
+                 step_every, n_sample, max_candidates, backend="lsm", num_shards=None, resident_stride=1, phase=7):
     """The DictionaryServer on the card: a `resident` tenant filled with
-    2^log2_resident unique keys in `fill_calls` updates (a step after each),
-    then `tenants` tenants replaying a `mixed` trace of `events` events
-    through `replay_server`, one more profiled step of a second trace, and a
-    cleanup; every ticket and the end state before and after the cleanup held
-    against per-tenant oracles. Returns a rates dict."""
+    2^log2_resident unique keys (`resident_stride` apart) in `fill_calls`
+    updates (a step after each), then `tenants` tenants replaying a `mixed`
+    trace of `events` events through `replay_server`, one more profiled step
+    of a second trace, and a cleanup; every ticket and the end state before
+    and after the cleanup held against per-tenant oracles. Returns a rates
+    dict."""
     from repro_torch.api import QueryPlan
     from repro_torch.serve import DictionaryServer, ServerConfig, make_trace
     from repro_torch.serve.traffic import replay_server
@@ -1327,11 +1356,12 @@ def drive_server(torch, device, seed, *, b, capacity, log2_resident, fill_calls,
     # The auto-sized plan of a dictionary this large would give every count
     # and range window a tile of capacity / 4 candidates; trace windows span
     # at most 32 keys, so 1024 candidates hold every version of them.
-    srv = DictionaryServer(ServerConfig(backend="lsm", batch_size=b, capacity=capacity, device=device,
-                                        default_plan=QueryPlan(max_candidates=max_candidates)))
+    srv = DictionaryServer(ServerConfig(backend=backend, num_shards=num_shards, batch_size=b, capacity=capacity,
+                                        device=device, default_plan=QueryPlan(max_candidates=max_candidates)))
     n_res = 1 << log2_resident
-    srv.register_tenant("resident", key_space=2 * n_res)
-    res_keys = torch.randperm(2 * n_res, generator=gen, device=device)[:n_res].to(torch.int32).cpu().numpy()
+    srv.register_tenant("resident", key_space=2 * n_res * resident_stride)
+    res_keys = (torch.randperm(2 * n_res, generator=gen, device=device)[:n_res] * resident_stride).to(
+        torch.int32).cpu().numpy()
     lanes = n_res // fill_calls
     sync()
     t0 = time.perf_counter()
@@ -1342,10 +1372,11 @@ def drive_server(torch, device, seed, *, b, capacity, log2_resident, fill_calls,
     sync()
     rates["fill_s"] = time.perf_counter() - t0
     rates["fill_M_elem_per_s"] = n_res / rates["fill_s"] / 1e6
-    require(srv.pending_estimate() == srv.dictionary.pending(), "pending model differs from the buffer")
-    log(f"phase 7 fill: {n_res} unique keys of tenant 'resident' in {fill_calls} updates of {lanes} lanes, "
-        f"{rates['fill_s']:.3f} s, {rates['fill_M_elem_per_s']:.3f} M elem/s; r = {srv.dictionary.state.r}, "
-        f"L = {srv.dictionary.state.num_levels}, flushes {srv.stats.flushes}")
+    if num_shards is None:  # the host model is exact for one shard
+        require(srv.pending_estimate() == srv.dictionary.pending(), "pending model differs from the buffer")
+    log(f"phase {phase} fill: {n_res} unique keys of tenant 'resident' in {fill_calls} updates of {lanes} lanes, "
+        f"{rates['fill_s']:.3f} s, {rates['fill_M_elem_per_s']:.3f} M elem/s; {describe(srv.dictionary)}, "
+        f"flushes {srv.stats.flushes}")
 
     t0 = time.perf_counter()
     names, trace = make_trace("mixed", num_tenants=tenants, key_space=key_space, events=events, seed=seed,
@@ -1355,7 +1386,7 @@ def drive_server(torch, device, seed, *, b, capacity, log2_resident, fill_calls,
     more = more[:step_every]
     for name in names:
         srv.register_tenant(name, key_space=key_space)
-    log(f"phase 7 traffic: {len(trace)} ops of {tenants} tenants ({events} events), made in "
+    log(f"phase {phase} traffic: {len(trace)} ops of {tenants} tenants ({events} events), made in "
         f"{time.perf_counter() - t0:.2f} s")
     before = srv.stats.as_dict()
     sync()
@@ -1367,7 +1398,7 @@ def drive_server(torch, device, seed, *, b, capacity, log2_resident, fill_calls,
     rates["replay_lanes_per_s"] = n_lanes / rates["replay_s"]
     after = srv.stats.as_dict()
     steps = after["device_steps"] - before["device_steps"]
-    log(f"phase 7 replay: {len(trace)} ops, {n_lanes} lanes, step every {step_every} ops, {rates['replay_s']:.3f} s: "
+    log(f"phase {phase} replay: {len(trace)} ops, {n_lanes} lanes, step every {step_every} ops, {rates['replay_s']:.3f} s: "
         f"{rates['replay_ops_per_s']:.1f} ops/s, {rates['replay_lanes_per_s']:.1f} lanes/s; {steps} device steps, "
         f"{len(trace) / steps:.2f} ops per device step")
 
@@ -1379,18 +1410,18 @@ def drive_server(torch, device, seed, *, b, capacity, log2_resident, fill_calls,
     what = f"one server step of {len(more)} ops"
     if device.type == "cuda":
         profile(torch, what, srv.step, top=6, show=("kway_merge_kernel", "bounds_runs_kernel", "fused_lookup_kernel",
-                                                    "radixSort"), phase=7)
+                                                    "radixSort"), phase=phase, out=rates)
     else:
         srv.step()
     results_more = [t.result() for t in tickets]
-    log(f"phase 7 stats: {json.dumps(srv.stats.as_dict())}")
+    log(f"phase {phase} stats: {json.dumps(srv.stats.as_dict())}")
 
     t0 = time.perf_counter()
     oracles = {}
     touched = check_tickets(trace + more, results + results_more, oracles)
     sample = res_keys[torch.randint(0, n_res, (n_sample,), generator=gen, device=device).cpu().numpy()]
     check_end_state(srv, oracles, touched, sample, "before cleanup")
-    log(f"phase 7 check: {len(trace) + len(more)} tickets and the end state of {len(touched)} tenants and "
+    log(f"phase {phase} check: {len(trace) + len(more)} tickets and the end state of {len(touched)} tenants and "
         f"{n_sample} resident keys equal to the oracles, {time.perf_counter() - t0:.2f} s")
     sync()
     t0 = time.perf_counter()
@@ -1399,8 +1430,8 @@ def drive_server(torch, device, seed, *, b, capacity, log2_resident, fill_calls,
     rates["cleanup_s"] = time.perf_counter() - t0
     check_end_state(srv, oracles, touched, sample, "after cleanup")
     require(not srv.dictionary.overflowed(), "overflow latched")
-    log(f"phase 7 cleanup: {rates['cleanup_s']:.4f} s, r = {srv.dictionary.state.r}; the end state still equals "
-        f"the oracles")
+    log(f"phase {phase} cleanup: {rates['cleanup_s']:.4f} s, {describe(srv.dictionary)}; the end state still "
+        f"equals the oracles")
     return rates
 
 
@@ -1563,6 +1594,128 @@ def drive_dedup(torch, device, seed, *, vocab, seq_len, batch, levels, steps):
     return rates
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the sharded LSM, its shards one after another on one card
+# ---------------------------------------------------------------------------
+
+
+def drive_sharded(torch, device, seed, bulk_keys, bulk_vals, *, shards, b, capacity, calls, lanes, n_lookups,
+                  n_windows, reps):
+    """The `lsm_sharded` facade with every shard on `device`: a bulk build
+    from `bulk_keys`, `calls` facade updates of `lanes` lanes in phase 6's
+    mix, a flush, lookups (half of them live keys), count and range windows
+    of 1024 keys (1024 straddling each shard boundary, the rest anywhere),
+    maintain, cleanup and size; every answer held against an oracle built on
+    the device. Returns a rates dict."""
+    from repro_torch.api import Dictionary, QueryPlan
+    from repro_torch.core import distributed as dist
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 5)
+
+    def randint(hi, size):
+        return torch.randint(0, hi, (size,), generator=gen, device=device, dtype=torch.int32)
+
+    rates = {}
+    t0 = time.perf_counter()
+    n = bulk_keys.numel()
+    keys, vals, dels, n_dup = mixed_batches(torch, gen, bulk_keys, calls, lanes, 1)
+    prio, status, bits = recency_prio(torch, dels)  # the bulk build is older than every call
+    live, live_vals = oracle_live(
+        torch, torch.cat([keys.reshape(-1), bulk_keys]), torch.cat([prio, torch.full((n,), 1 << bits, device=device)]),
+        torch.cat([status, torch.ones(n, dtype=torch.long, device=device)]), torch.cat([vals.reshape(-1), bulk_vals]),
+        bits + 1)
+    d = Dictionary.create("lsm_sharded", num_shards=shards, batch_size=b, capacity=capacity, device=device)
+    cfg = d._backend.cfg
+    require(d.num_shards == shards and d.devices == (device,) and cfg.local.num_levels == (capacity // b).bit_length()
+            and all(st.arena_kv.numel() == b << cfg.local.num_levels for st in d.state), "unexpected sharded shape")
+    sync()
+    log(f"phase 10 set-up: {shards} shards of b = {b}, L = {cfg.local.num_levels} ({cfg.local.capacity} slots each), "
+        f"all on {device}; {n} bulk keys, {calls} update calls of {lanes} lanes ({n_dup} in-call duplicates), "
+        f"oracle of {live.numel()} live keys, {time.perf_counter() - t0:.2f} s")
+
+    sync()
+    t1 = time.perf_counter()
+    d = d.bulk_build(bulk_keys, bulk_vals)
+    sync()
+    rates["bulk_build_M_elem_per_s"] = n / (time.perf_counter() - t1) / 1e6
+    owned = torch.bincount(dist.owner_of(cfg, bulk_keys).long(), minlength=shards).tolist()
+    r = [st.r for st in d.state]
+    require(r == [-(-o // b) for o in owned], f"bulk build left r = {r} for {owned} owned keys")
+    log(f"phase 10 bulk build: {rates['bulk_build_M_elem_per_s']:.3f} M elem/s; owned {owned}, r = {r}")
+
+    t1 = time.perf_counter()
+    for c in range(calls - 1):
+        d = d.update(keys[c], vals[c], is_delete=dels[c])
+    sync()
+    dt = time.perf_counter() - t1
+    rates["update_M_elem_per_s"] = (calls - 1) * lanes / dt / 1e6
+    last = (keys[-1], vals[-1], dels[-1])
+    what = f"one facade update of {lanes} lanes over {shards} shards"
+    if device.type == "cuda":
+        d = profile(torch, what, lambda: d.update(last[0], last[1], is_delete=last[2]), top=6,
+                    show=("kway_merge_kernel", "radixSort"), phase=10, out=rates)
+        rates["update_idle_share"] = rates.pop("idle_share")
+    else:
+        d = d.update(last[0], last[1], is_delete=last[2])
+    d = d.flush()
+    sync()
+    require(d.pending() == 0 and not d.overflowed(), "pending or overflow after the flush")
+    log(f"phase 10 update: {calls - 1} facade calls of {lanes} lanes {dt:.3f} s, "
+        f"{rates['update_M_elem_per_s']:.3f} M elem/s (the last call profiled apart), flush; {describe(d)}")
+    del keys, vals, dels, prio, status, last
+
+    rs = cfg.range_size
+    q = torch.cat([live[randint(live.numel(), n_lookups // 2).long()], randint(MAX_USER_KEY + 1, n_lookups - n_lookups // 2)])
+    straddle = torch.cat([s * rs - 1 - randint(1023, 1024) for s in range(1, shards)])
+    k1 = torch.cat([straddle, randint(MAX_USER_KEY - 1022, n_windows - straddle.numel())])
+    k2 = k1 + 1023
+    plan = QueryPlan(max_candidates=1024, max_results=512)
+    lookup, count, range_ = query_checks(torch, live, live_vals, q, k1, k2, plan.max_results)
+    for name, call, check, nq in (("lookup", lambda: d.lookup(q), lookup, n_lookups),
+                                  ("count", lambda: d.count(k1, k2, plan), count, n_windows),
+                                  ("range", lambda: d.range(k1, k2, plan), range_, n_windows)):
+        check(call(), f"sharded {name}")
+        sync()
+        t1 = time.perf_counter()
+        results = [call() for _ in range(reps)]
+        sync()
+        dt = time.perf_counter() - t1
+        for res in results:
+            check(res, f"sharded {name}")
+        rates[f"{name}_M_q_per_s"] = reps * nq / dt / 1e6
+        log(f"phase 10 {name}: {reps} calls of {nq} {'queries' if name == 'lookup' else 'windows of 1024 keys'} "
+            f"after a warm-up, {dt:.4f} s, {rates[f'{name}_M_q_per_s']:.3f} M q/s; equal to the oracle")
+        del results
+    if device.type == "cuda":
+        lookup(profile(torch, f"one lookup of {n_lookups} queries over {shards} shards", lambda: d.lookup(q), top=6,
+                       show=("fused_lookup_kernel",), phase=10, out=rates), "profiled sharded lookup")
+        rates["lookup_idle_share"] = rates.pop("idle_share")
+
+    for name, step in (("maintain", lambda h: h.maintain(7 * b)), ("cleanup", lambda h: h.cleanup())):
+        sync()
+        t1 = time.perf_counter()
+        d = step(d)
+        sync()
+        rates[f"{name}_s"] = time.perf_counter() - t1
+        lookup(d.lookup(q), f"sharded lookup after {name}")
+        count(d.count(k1, k2, plan), f"sharded count after {name}")
+        log(f"phase 10 {name}{' (budget 7b per shard)' if name == 'maintain' else ''}: {rates[f'{name}_s']:.4f} s, "
+            f"{describe(d)}; lookup and count still equal the oracle")
+    range_(d.range(k1, k2, plan), "sharded range after cleanup")
+    t1 = time.perf_counter()
+    size = int(d.size())
+    rates["size_s"] = time.perf_counter() - t1
+    require(size == live.numel(), f"sharded size {size} != oracle {live.numel()}")
+    require(not d.overflowed(), "sharded overflow latched")
+    log(f"phase 10 size: {size} live, {rates['size_s']:.4f} s; every result equals the oracle")
+    return rates
+
+
 def log_rows(rows):
     def fmt(x):
         return "none" if x is None else f"{x:.4f}"
@@ -1680,12 +1833,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     ck_rates, _ = drive(8, lambda: drive_cuckoo(torch, device, args.seed, bulk_keys, bulk_vals, n_lookups=1 << 20,
                                                 reps=5))
-    del bulk_keys, bulk_vals
     torch.cuda.empty_cache()
     dedup_rates, launches9 = drive(9, lambda: drive_dedup(
         torch, device, args.seed, vocab=32000, seq_len=2048, batch=4096, levels=16, steps=16))
     require(all(launches9[k] > 0 for k in ("bitonic_sort", "merge_cascade", "fused_lookup")),
             f"a kernel did not run on phase 9's path: {launches9}")
+
+    # Phase 10: four shards of the sharded LSM, all on this one card (run one
+    # after another), at phase 6's and phase 7's scale.
+    torch.cuda.empty_cache()
+    peak_1_9 = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    card0 = torch.device("cuda", torch.cuda.current_device())
+    sh_rates, launches10a = drive("10a", lambda: drive_sharded(
+        torch, card0, args.seed, bulk_keys, bulk_vals, shards=4, b=b, capacity=capacity, calls=256, lanes=1 << 18,
+        n_lookups=1 << 20, n_windows=1 << 14, reps=3))
+    require(all(launches10a[k] > 0 for k in ("merge_cascade", "bitonic_sort", "fused_lookup", "bound")),
+            f"a kernel of the LSM path did not run on phase 10's sharded path: {launches10a}")
+    del bulk_keys, bulk_vals
+    torch.cuda.empty_cache()
+    sh_srv_rates, launches10b = drive("10b", lambda: drive_server(
+        torch, card0, args.seed, b=b, capacity=capacity, log2_resident=26, fill_calls=64, tenants=4096,
+        key_space=1 << 16, events=1 << 16, step_every=4096, n_sample=1 << 20, max_candidates=1024,
+        backend="lsm_sharded", num_shards=4, resident_stride=5, phase=10))
+    require(all(launches10b[k] > 0 for k in staged_path), f"a kernel did not run on phase 10's server: {launches10b}")
+    sh_peak = torch.cuda.max_memory_allocated() / 2**30
 
     log(f"rates ({card}): insert {rates['insert_M_elem_per_s']:.3f} M elem/s, "
         f"lookup {rates['lookup_M_q_per_s']:.3f} M q/s, count {rates['count_M_q_per_s']:.4f} M q/s, "
@@ -1703,7 +1875,19 @@ def main() -> int:
         f"{ck_rates['n']}), lookup present {ck_rates['lookup_present_M_q_per_s']:.2f} / absent "
         f"{ck_rates['lookup_absent_M_q_per_s']:.2f} M q/s; dedup {dedup_rates['docs_per_s']:.1f} docs/s, "
         f"{dedup_rates['tokens_per_s'] / 1e6:.3f} M tokens/s")
-    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; total {time.perf_counter() - t_all:.1f} s")
+    r = sh_rates
+    log(f"phase 10 rates ({card}; 4 shards run one after another on this one card, not a multi-card rate): "
+        f"bulk build {r['bulk_build_M_elem_per_s']:.3f} M elem/s, update {r['update_M_elem_per_s']:.3f} M elem/s, "
+        f"lookup {r['lookup_M_q_per_s']:.3f} M q/s, count {r['count_M_q_per_s']:.4f} M q/s, range "
+        f"{r['range_M_q_per_s']:.4f} M q/s, maintain(7b) {r['maintain_s'] * 1e3:.1f} ms, cleanup "
+        f"{r['cleanup_s'] * 1e3:.1f} ms, size {r['size_s'] * 1e3:.1f} ms; idle share of one update call "
+        f"{r['update_idle_share']:.3f}, of one lookup call {r['lookup_idle_share']:.3f}; server replay "
+        f"{sh_srv_rates['replay_ops_per_s']:.1f} ops/s, {sh_srv_rates['replay_lanes_per_s']:.1f} lanes/s, fill "
+        f"{sh_srv_rates['fill_M_elem_per_s']:.3f} M elem/s, step idle share {sh_srv_rates['idle_share']:.3f}, "
+        f"cleanup {sh_srv_rates['cleanup_s'] * 1e3:.1f} ms; peak device memory of phase 10 {sh_peak:.2f} GiB")
+    log(f"phase 10 launches: sharded dictionary {launches10a}; server {launches10b}")
+    log(f"peak device memory {max(peak_1_9, torch.cuda.max_memory_allocated()) / 2**30:.2f} GiB; "
+        f"total {time.perf_counter() - t_all:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

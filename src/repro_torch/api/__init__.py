@@ -1,6 +1,7 @@
 """The `Dictionary` facade over the port's backends: the paper's GPU LSM
-("lsm") and its two baselines, the sorted array ("sorted_array") and the
-static cuckoo hash ("cuckoo").
+("lsm"), its two baselines, the sorted array ("sorted_array") and the static
+cuckoo hash ("cuckoo"), and the range-partitioned sharded LSM
+("lsm_sharded").
 
     from repro_torch.api import Dictionary
 

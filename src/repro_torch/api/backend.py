@@ -82,6 +82,11 @@ class Backend(abc.ABC):
         """Device partitions behind this backend (1: a single device)."""
         return 1
 
+    @property
+    def devices(self) -> Tuple[Any, ...]:
+        """Every distinct device holding state, the facade's `device` first."""
+        return (self.device,)
+
     @classmethod
     @abc.abstractmethod
     def from_options(cls, **options) -> "Backend":
@@ -179,19 +184,11 @@ def register_backend(cls: Type[Backend]) -> Type[Backend]:
     return cls
 
 
-# Backends of repro.api that this package does not have yet, with the
-# ROADMAP.md item that ports each.
-_NOT_YET_PORTED = {
-    "lsm_sharded": "ROADMAP.md queue A item 10 (core/distributed.py)",
-}
-
-
 def get_backend_class(name: str) -> Type[Backend]:
     try:
         return _REGISTRY[name]
     except KeyError:
-        later = f"; {name!r} is not ported yet: {_NOT_YET_PORTED[name]}" if name in _NOT_YET_PORTED else ""
-        raise KeyError(f"unknown backend {name!r}; this package has {sorted(_REGISTRY)}{later}") from None
+        raise KeyError(f"unknown backend {name!r}; registered: {sorted(_REGISTRY)}") from None
 
 
 def available_backends() -> Tuple[str, ...]:

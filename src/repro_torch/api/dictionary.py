@@ -141,7 +141,8 @@ class Dictionary:
                **options) -> "Dictionary":
         """Empty dictionary. Options as in repro.api.Dictionary.create
         (capacity, batch_size, num_levels; for "cuckoo" load_factor, seed and
-        max_rounds), plus `device` (default: the card).
+        max_rounds; for "lsm_sharded" num_shards, mesh and axis), plus
+        `device` (default: the card; api/backends.py says where shards go).
 
         `flush_threshold`: after every update, a write buffer holding >= this
         many staged elements is flushed. `maintenance_budget`: piggyback
@@ -188,6 +189,11 @@ class Dictionary:
         return self._backend.device
 
     @property
+    def devices(self):
+        """Every distinct device holding this handle's state, `device` first."""
+        return self._backend.devices
+
+    @property
     def num_shards(self) -> int:
         """Device partitions behind this handle (1 unless the backend is sharded)."""
         return self._backend.num_shards
@@ -200,7 +206,8 @@ class Dictionary:
 
     @property
     def state(self):
-        """The underlying core state (LSMState, SAState or CuckooTable)."""
+        """The underlying core state (LSMState, SAState or CuckooTable; for
+        "lsm_sharded" a tuple of LSMState, one per shard)."""
         return self._live()
 
     def __repr__(self) -> str:
@@ -376,5 +383,5 @@ class Dictionary:
         return self._backend.size(self._live())
 
     def overflowed(self) -> bool:
-        """Did any update exceed the static capacity?"""
+        """Did any update exceed the static capacity (on any shard)?"""
         return self._backend.overflowed(self._live())

@@ -1,12 +1,15 @@
-"""Carry LSM, sorted-array and cuckoo state across between this package and
-the JAX reference.
+"""Carry LSM, sharded-LSM, sorted-array and cuckoo state across between this
+package and the JAX reference.
 
 The exchange format is a mapping of numpy arrays with the field names of
 `repro.core.lsm.LSMState` (`key_vars` and `values` are sequences of one array
 per level), `repro.core.sorted_array.SAState` or
 `repro.core.cuckoo.CuckooTable`, which is what
-`jax.device_get(state)._asdict()` gives. Neither direction imports JAX: the
-caller converts on its side.
+`jax.device_get(state)._asdict()` gives. The reference's sharded state is an
+`LSMState` whose every leaf has a leading shard axis ([S, ...] levels and
+buffers, [S] `r`, `buf_n` and `overflowed`); here it is a tuple of one
+`LSMState` per shard. Neither direction imports JAX: the caller converts on
+its side.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.cuckoo import CuckooConfig, CuckooTable
+from repro_torch.core.distributed import DistLSMConfig
 from repro_torch.core.lsm import LSMConfig, LSMState
 from repro_torch.core.sorted_array import SAConfig, SAState
 
@@ -72,6 +76,36 @@ def lsm_state_to_numpy(state: LSMState) -> dict:
         buf_sorted_val=_host(state.buf_sorted_val),
         lvl_debt=_host(state.lvl_debt),
     )
+
+
+_LEVELS = ("key_vars", "values")
+
+
+def dist_state_from_numpy(cfg: DistLSMConfig, fields, devices) -> tuple:
+    """The reference's stacked sharded state as numpy -> a tuple of
+    `LSMState`, shard s on `devices[s]` (copies, as `lsm_state_from_numpy`)."""
+    S = cfg.num_shards
+    if len(devices) != S:
+        raise ValueError(f"expected {S} devices, got {len(devices)}")
+    for name, v in fields.items():
+        for leaf in (v if name in _LEVELS else (v,)):
+            if np.shape(leaf)[:1] != (S,):
+                raise ValueError(f"{name} must have a leading shard axis of {S}, got shape {np.shape(leaf)}")
+    return tuple(
+        lsm_state_from_numpy(
+            cfg.local,
+            {name: tuple(np.asarray(a)[s] for a in v) if name in _LEVELS else np.asarray(v)[s]
+             for name, v in fields.items()},
+            dev)
+        for s, dev in enumerate(devices))
+
+
+def dist_state_to_numpy(states) -> dict:
+    """A tuple of shard states -> the reference's stacked fields as numpy:
+    every `lsm_state_to_numpy` field with a leading shard axis."""
+    per = [lsm_state_to_numpy(st) for st in states]
+    return {name: tuple(np.stack(level) for level in zip(*(p[name] for p in per))) if name in _LEVELS
+            else np.stack([p[name] for p in per]) for name in per[0]}
 
 
 def sa_state_from_numpy(cfg: SAConfig, fields, device) -> SAState:

@@ -76,16 +76,17 @@ def _hash(cfg: CuckooConfig, keys, which) -> torch.Tensor:
 def cuckoo_build(cfg: CuckooConfig, keys, values) -> CuckooTable:
     """Bulk build on the keys' device. Keys must be unique and non-negative.
     Runs rounds until every key is placed or `max_rounds` ran; `build_ok`
-    says which. An empty key set gives an empty table."""
+    says which. An empty key set raises ValueError, where the reference's
+    build fails in its gather."""
     keys = torch.as_tensor(keys, dtype=torch.int32)
     device = keys.device
     values = torch.as_tensor(values, dtype=torch.int32, device=device)
     n = keys.shape[0]
     m = cfg.table_size
-    slot_owner = torch.full((m,), EMPTY, dtype=torch.int32, device=device)
     if n == 0:
-        _seed_term(cfg)
-        return CuckooTable(slot_owner, torch.zeros(m, dtype=torch.int32, device=device), True)
+        _seed_term(cfg)  # a seed outside uint32 raises first, as in the reference
+        raise ValueError("cuckoo build needs at least one key")
+    slot_owner = torch.full((m,), EMPTY, dtype=torch.int32, device=device)
     ids = torch.arange(n, dtype=torch.int32, device=device)
     all_h = torch.stack([_hash_one(cfg, keys, j) for j in range(_NUM_HASHES)])  # int32[4, n]
     attempt = torch.zeros(n, dtype=torch.int32, device=device)

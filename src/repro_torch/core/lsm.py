@@ -239,6 +239,13 @@ def lsm_update_mixed(cfg: LSMConfig, state: LSMState, keys, values, is_delete) -
     return lsm_update(cfg, state, kv, torch.where(tomb, sem.EMPTY_VALUE, sem.as_int32(values, kv.device)))
 
 
+def _bulk_batches(cfg: LSMConfig, n: int) -> int:
+    k = -(-n // cfg.batch_size)  # the last batch may be placebo-padded
+    if k > cfg.max_batches:
+        raise ValueError("bulk build exceeds configured capacity")
+    return k
+
+
 def lsm_bulk_build(cfg: LSMConfig, keys, values) -> LSMState:
     """Build from n unique keys on their device: one sort, then the level
     segmentation of CLEANUP (paper §5.2).
@@ -248,17 +255,21 @@ def lsm_bulk_build(cfg: LSMConfig, keys, values) -> LSMState:
     """
     keys = sem.as_int32(keys)
     values = sem.as_int32(values, keys.device)
-    n = keys.shape[0]
-    b = cfg.batch_size
-    k = -(-n // b)  # the last batch may be placebo-padded
-    if k > cfg.max_batches:
-        raise ValueError("bulk build exceeds configured capacity")
+    _bulk_batches(cfg, keys.shape[0])
     kv, vals = ops.sort_pairs(sem.encode_insert(keys), values)
-    state = lsm_init(cfg, keys.device)
+    return lsm_build_sorted(cfg, kv, vals)
+
+
+def lsm_build_sorted(cfg: LSMConfig, key_vars, values) -> LSMState:
+    """The bulk build's levels from n sorted key variables of unique keys,
+    on their device (the sharded build slices one sort into shards)."""
+    n = key_vars.shape[0]
+    b = cfg.batch_size
+    k = _bulk_batches(cfg, n)
+    state = lsm_init(cfg, key_vars.device)
     # Only the k * b slots the resident levels take need the placebo tail.
-    sorted_kv, sorted_val = sem.placebo(k * b, keys.device)
-    sorted_kv[:n], sorted_val[:n] = kv, vals
-    del kv, vals
+    sorted_kv, sorted_val = sem.placebo(k * b, key_vars.device)
+    sorted_kv[:n], sorted_val[:n] = key_vars, values
     cascade.redistribute(cfg, sorted_kv, sorted_val, k, state.key_vars, state.values)
     state.r = k
     return state

@@ -478,7 +478,9 @@ class DictionaryServer:
 
     def pending_estimate(self) -> int:
         """Host-side write-buffer occupancy model (no device sync); exact for
-        single-shard buffered backends."""
+        single-shard buffered backends. A sharded backend's buffers are
+        shard-local and flush only on local overflow, so its device truth can
+        exceed this model; `occupancy()` reads the device truth."""
         return self._pending_model
 
     def occupancy(self):
@@ -656,12 +658,13 @@ class DictionaryServer:
 
     def drain(self) -> ServerStats:
         """Run every queued op, idle-maintain if configured, and wait until
-        the device is idle. Returns the stats."""
+        every device holding the dictionary is idle. Returns the stats."""
         while self._queue:
             self.step()
         if (self.config.maintenance_budget is not None
                 and self._d.capabilities.supports_maintenance):
             self.maintain(self.config.maintenance_budget)
-        if self._d.device.type == "cuda":
-            torch.cuda.synchronize(self._d.device)
+        for dev in self._d.devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return self.stats

@@ -148,6 +148,18 @@ def test_facade_overflow_when_the_build_fails():
     assert_tables_equal(jd.state, td.state)
 
 
+def test_empty_build_raises_in_both():
+    """No keys: the reference's build fails in its gather (TypeError); the
+    port raises ValueError instead of returning an empty table."""
+    empty = np.zeros(0, np.int32)
+    with pytest.raises(TypeError):
+        JaxDictionary.create("cuckoo", capacity=16).bulk_build(empty, empty)
+    with pytest.raises(ValueError, match="at least one key"):
+        Dictionary.create("cuckoo", capacity=16, device="cpu").bulk_build(empty, empty)
+    with pytest.raises(ValueError, match="at least one key"):
+        tck.cuckoo_build(tck.CuckooConfig(16), torch.from_numpy(empty), torch.from_numpy(empty))
+
+
 def test_capability_errors():
     """tests/test_dictionary_api.py's cuckoo capability checks, on the port:
     lookups work; updates, ordered queries and cleanup raise, naming the

@@ -292,7 +292,8 @@ def test_cuda_cuckoo_matches_cpu(cuda, n, load, seed, max_rounds):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("opts", [{"backend": "lsm", "num_levels": 8}, {"backend": "sorted_array", "capacity": 4096}])
+@pytest.mark.parametrize("opts", [{"backend": "lsm", "num_levels": 8}, {"backend": "sorted_array", "capacity": 4096},
+                                  {"backend": "lsm_sharded", "num_levels": 8, "num_shards": 4}])
 def test_cuda_server_trace_matches_cpu(cuda, opts):
     from repro_torch.serve import traffic
     from repro_torch.serve.server import DictionaryServer, ServerConfig
@@ -300,7 +301,9 @@ def test_cuda_server_trace_matches_cpu(cuda, opts):
     tenants, trace = traffic.make_trace("mixed", num_tenants=8, key_space=512, events=200, seed=5)
 
     def run(device):
-        srv = DictionaryServer(ServerConfig(batch_size=64, device=device, **opts))
+        # An indexed card holds every shard of the sharded backend.
+        dev = torch.device("cuda", torch.cuda.current_device()) if device.type == "cuda" else device
+        srv = DictionaryServer(ServerConfig(batch_size=64, device=dev, **opts))
         for name in tenants:
             srv.register_tenant(name, key_space=512)
         results = traffic.replay_server(srv, trace, step_every=32)
@@ -329,3 +332,52 @@ def test_cuda_dedup_steps_match_cpu(cuda):
     got, exp = both_devices(run, cuda)
     assert_same(got, exp)
     assert int(exp[0][-2]) == 256
+
+
+def sharded_ops(rng, b, n_calls):
+    """Ragged facade updates over keys spread across 4 shard ranges and
+    clustered at their boundaries (duplicates, deletes, negative values)."""
+    edges = np.array([k for s in range(1, 4) for k in (s * (1 << 28) - 1, s * (1 << 28))] + [0, MAX_USER_KEY])
+    pool = np.concatenate([edges, rng.integers(0, MAX_USER_KEY + 1, 6 * b), rng.integers(0, 3000, b)])
+    for _ in range(n_calls):
+        n = int(rng.integers(1, 3 * b + 2))
+        yield (rng.choice(pool, n), rng.integers(-(1 << 20), 1 << 20, n).astype(np.int32), rng.random(n) < 0.3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,levels", [(64, 6), (1024, 5)])
+def test_cuda_sharded_dictionary_matches_cpu(cuda, b, levels):
+    """Four shards on one card against the same calls with every shard on
+    the CPU: bulk build, ragged updates, flush, maintain, direct batches,
+    every query, cleanup, and the shard states field by field."""
+    from repro_torch import convert
+    from repro_torch.api import Dictionary, QueryPlan
+    from repro_torch.core import distributed as dist
+
+    def run(device):
+        dev = torch.device("cuda", torch.cuda.current_device()) if device.type == "cuda" else device
+        rng = np.random.default_rng(b)
+        d = Dictionary.create("lsm_sharded", num_shards=4, batch_size=b, num_levels=levels, device=dev)
+        keys = rng.choice(MAX_USER_KEY + 1, 5 * b, replace=False)
+        d = d.bulk_build(keys, rng.integers(-99, 99, keys.size).astype(np.int32))
+        plan = QueryPlan(max_candidates=4 * b, max_results=64)
+        q = np.concatenate([keys[:b], rng.integers(0, MAX_USER_KEY + 1, b), [0, MAX_USER_KEY]])
+        k1 = np.concatenate([rng.integers(0, MAX_USER_KEY - (1 << 20), 64), [(1 << 28) - 5, (2 << 28) - 5, 0]])
+        k2 = np.concatenate([k1[:64] + (1 << 20), [(1 << 28) + 5, (2 << 28) + 5, MAX_USER_KEY]])
+        out = []
+        for i, (k, v, dl) in enumerate(sharded_ops(rng, b, 12)):
+            d = d.update(k, v, is_delete=dl)
+            if i == 5:
+                d = d.flush().maintain(3 * b)
+            out += [d.pending(), list(d.occupancy()), d.flush_cost_estimate()]
+        be = d._backend
+        kv = torch.from_numpy((rng.choice(keys, b) * 2 + 1).astype(np.int32)).to(dev)
+        state = dist.dist_update(be.cfg, be.mesh, dist.dist_flush(be.cfg, be.mesh, d.state), kv, kv)
+        out += [list(convert.dist_state_to_numpy(state).values()), d.lookup(q), d.count(k1, k2, plan),
+                d.range(k1, k2, plan), d.size()]
+        d = d.cleanup()
+        out += [list(convert.dist_state_to_numpy(d.state).values()), d.lookup(q), d.size(), d.overflowed()]
+        return out
+
+    got, exp = both_devices(run, cuda)
+    assert_same(got, exp)

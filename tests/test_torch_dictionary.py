@@ -208,8 +208,13 @@ def test_create_defaults_to_the_card(monkeypatch):
 def test_create_option_errors():
     with pytest.raises(TypeError):
         Dictionary.create("lsm", device="cpu", load_factor=0.5)
-    with pytest.raises(KeyError, match="ROADMAP.md queue A item 10"):
-        Dictionary.create("lsm_sharded", device="cpu")
+    with pytest.raises(KeyError, match="unknown backend 'nope'"):
+        Dictionary.create("nope", device="cpu")
+    # The sharded LSM is ported: create gives a live handle (its own errors
+    # are in test_torch_sharded.py).
+    d = Dictionary.create("lsm_sharded", device="cpu", num_shards=2, batch_size=8, num_levels=3)
+    assert (d.backend, d.num_shards, d.capacity, d.buffered) == ("lsm_sharded", 2, 56, True)
+    assert int(d.size()) == 0
     # The cuckoo backend is ported: the reference's option errors.
     with pytest.raises(TypeError):
         Dictionary.create("cuckoo", device="cpu", num_levels=4)
