@@ -70,7 +70,20 @@ Phases, one line each with its seconds:
      against an oracle on the card; (b) phase 7's server protocol over the
      sharded dictionary, its resident keys spread over three shards and its
      tenants over the last two. The launch counts of the four LSM kernels
-     on this path must be positive.
+     on this path must be positive;
+ 11. the LM stack's serving entry point, `python -m repro_torch.launch.serve
+     --arch qwen2-7b` at full width (28 layers, d_model 3584, vocab 152064;
+     random bf16 parameters from a seeded generator on the card): 16
+     requests in waves of 8, prompts of 512 tokens, 32 greedy decode steps,
+     pages of 16 tokens admitted, counted and evicted through the
+     DictionaryServer's LSM (the launch counts of `merge_cascade`, `bound`
+     and `fused_lookup` must be positive); pages/seq, free slots and the
+     emptied index held exactly; wave 0 again as prefill(S-1) + one decode
+     step against the parallel forward, in the served bf16 (printed) and in
+     fp32 with the same parameters (relative L2 <= 1e-4); one decode step
+     profiled; every family's smoke config on the card against the CPU
+     (fp32, TF32 off). Prints prefill and decode rates beside the decode's
+     bandwidth bound (the parameter bytes read once a step).
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before it. Without a CUDA device, or without the repository's src/ beside
 it, the script exits non-zero and prints no result.
@@ -1716,6 +1729,158 @@ def drive_sharded(torch, device, seed, bulk_keys, bulk_vals, *, shards, b, capac
     return rates
 
 
+# ---------------------------------------------------------------------------
+# phase 11: LM serving at full width over the LSM page index
+# ---------------------------------------------------------------------------
+
+
+def rel_l2(torch, got, exp) -> float:
+    got, exp = got.float(), exp.float()
+    return (torch.linalg.vector_norm(got - exp) / torch.linalg.vector_norm(exp)).item()
+
+
+def drive_lm(torch, device, *, arch, requests, batch, prompt_len, gen_tokens, page_size, smoke=False):
+    """`python -m repro_torch.launch.serve` as a user runs it, on the card:
+    random bf16 parameters from a seeded generator on the card, prompts from
+    numpy's generator seeded 0, the page table as a tenant of the
+    DictionaryServer. Holds the page table's results exactly."""
+    from repro_torch.launch import serve
+
+    argv = ["--arch", arch, "--requests", str(requests), "--batch", str(batch), "--prompt-len", str(prompt_len),
+            "--gen-tokens", str(gen_tokens), "--page-size", str(page_size), "--device", str(device)] + (
+                ["--smoke"] if smoke else [])
+    log(f"phase 11 serve: python -m repro_torch.launch.serve {' '.join(argv)}")
+    t0 = time.perf_counter()
+    out = serve.main(argv)
+    out["main_s"] = time.perf_counter() - t0
+    n_pages = max(1, prompt_len // page_size)
+    require(len(out["waves"]) == -(-requests // batch), f"{len(out['waves'])} waves served")
+    for i, w in enumerate(out["waves"]):
+        require(w["pages_per_seq"] == [n_pages] * batch, f"wave {i}: pages/seq {w['pages_per_seq']}, not {n_pages}")
+        require(w["free"] == 1024 - n_pages * batch, f"wave {i}: {w['free']} free, not {1024 - n_pages * batch}")
+    require(out["live_pages"] == 0 and out["r"] == 0,
+            f"after evict, drain and cleanup the index holds {out['live_pages']} live pages (r = {out['r']})")
+    require(out["tokens"] == requests * gen_tokens, f"{out['tokens']} tokens decoded")
+    return out
+
+
+def decode_vs_parallel(torch, cfg, model, tok):
+    """prefill(S-1) + one decode step against the parallel forward at
+    positions S-2 and S-1 (tests/test_models_smoke.py's check at full
+    width): relative L2 of each, every logit finite."""
+    from repro_torch.models import model_zoo as zoo
+
+    s = tok.shape[1]
+    with torch.inference_mode():
+        logits_all, _ = zoo.apply_train(cfg, model, {"tokens": tok})
+        pre, caches = zoo.apply_prefill(cfg, model, {"tokens": tok[:, :s - 1]}, cache_pad_to=s + 1)
+        dec, caches = zoo.apply_decode(cfg, model, tok[:, s - 1:], caches, s - 1)
+        for name, x in (("train", logits_all), ("prefill", pre), ("decode", dec)):
+            require(bool(torch.isfinite(x).all()), f"non-finite {name} logits")
+        errs = rel_l2(torch, pre, logits_all[:, s - 2]), rel_l2(torch, dec, logits_all[:, s - 1])
+    return errs, dec, caches
+
+
+def check_lm(torch, out, rates):
+    """Wave 0 again through the served bf16 model: decode against the
+    parallel forward (printed: bf16 rounding through 28 random layers sets
+    its size), one more decode step under the profiler; then the same check
+    on the same parameters in fp32 with TF32 off, held to relative L2 <= 1e-4
+    (the model's arithmetic, without bf16's rounding)."""
+    from repro_torch.models import model_zoo as zoo
+
+    cfg, model = out["cfg"], out.pop("model")
+    tok = torch.as_tensor(out["prompts"][0], device=model.embed.device)
+    s = tok.shape[1]
+    errs, dec, caches = decode_vs_parallel(torch, cfg, model, tok)
+    rates["bf16_rel_l2"] = errs
+    nxt = torch.argmax(dec, dim=-1)[:, None]
+    with torch.inference_mode():
+        profile(torch, f"one decode step of {tok.shape[0]} sequences at position {s}",
+                lambda: zoo.apply_decode(cfg, model, nxt, caches, s), top=6, phase=11, out=rates)
+    del model, dec, caches
+    torch.cuda.empty_cache()
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        fp32 = zoo.init_params(cfg, device=tok.device, dtype=torch.float32)  # the served model's seed
+        rates["fp32_rel_l2"], _, _ = decode_vs_parallel(torch, cfg, fp32, tok)
+        del fp32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    torch.cuda.empty_cache()
+    (b_pre, b_dec), (f_pre, f_dec) = rates["bf16_rel_l2"], rates["fp32_rel_l2"]
+    log(f"phase 11 decode vs parallel forward (wave 0, {tok.shape[0]} sequences of {s}), relative L2 of "
+        f"prefill(S-1) / decode at S-1: bf16 (the served model) {b_pre:.4e} / {b_dec:.4e}; fp32, TF32 off "
+        f"{f_pre:.4e} / {f_dec:.4e} (<= 1e-4)")
+    require(f_pre <= 1e-4 and f_dec <= 1e-4, f"fp32 prefill / decode against the parallel forward: relative L2 "
+            f"{f_pre:.3e} / {f_dec:.3e} > 1e-4")
+
+
+def check_families(torch, device, seed):
+    """Every family's smoke config on the card against the same parameters
+    on the CPU, in fp32 with TF32 off: train forward, prefill (logits and
+    caches) and one decode step, the reference smoke test's protocol.
+    Tolerance |card - cpu| <= 1e-4 + 1e-3 |cpu|: the two devices sum matrix
+    products in other orders and their exp/tanh differ in the last bits.
+    seamless' audio encoder runs in bf16 whatever the weights (frames enter
+    in bf16), so it is held at the bf16 tolerance 2e-2 + 2e-2 |cpu|."""
+    import copy
+
+    from repro_torch.configs.base import ARCH_IDS, get_smoke_config
+    from repro_torch.models import model_zoo as zoo
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                yield from leaves(v)
+        elif isinstance(tree, list):
+            for v in tree:
+                yield from leaves(v)
+        else:
+            yield tree
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    errs = {}
+    try:
+        for arch in ARCH_IDS:
+            cfg = get_smoke_config(arch)
+            cpu_model = zoo.init_params(cfg, seed=seed, device="cpu", dtype=torch.float32)
+            models = {"cpu": cpu_model, "card": copy.deepcopy(cpu_model).to(device)}
+            rng = np.random.default_rng(seed)
+            n_prefix = cfg.num_patches if cfg.has_vision_stub else 0
+            st = 32 - n_prefix
+            batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, st))}
+            if cfg.has_vision_stub:
+                batch["patch_embeds"] = rng.normal(size=(2, cfg.num_patches, cfg.d_model)).astype(np.float32)
+            if cfg.is_encoder_decoder:
+                batch["frames"] = rng.normal(size=(2, 16, cfg.d_model)).astype(np.float32)
+            res = {}
+            for where, model in models.items():
+                dev = model.embed.device
+                b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+                with torch.inference_mode():
+                    logits, aux = zoo.apply_train(cfg, model, b)
+                    pre, caches = zoo.apply_prefill(cfg, model, dict(b, tokens=b["tokens"][:, :st - 1]),
+                                                    cache_pad_to=st + n_prefix)
+                    dec, _ = zoo.apply_decode(cfg, model, b["tokens"][:, st - 1:], caches, st - 1 + n_prefix)
+                res[where] = [logits, aux, pre, dec, *leaves(caches)]
+            rtol, atol = (2e-2, 2e-2) if cfg.is_encoder_decoder else (1e-3, 1e-4)
+            err = 0.0
+            for got, exp in zip(res["card"], res["cpu"]):
+                got = got.cpu().float()
+                require(bool(torch.isfinite(got).all()), f"{arch}: non-finite output on the card")
+                require(torch.allclose(got, exp.float(), rtol=rtol, atol=atol), f"{arch}: card differs from the CPU")
+                err = max(err, (got - exp.float()).abs().max().item())
+            errs[arch] = err
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    log(f"phase 11 families: {len(errs)} smoke configs on the card against the CPU (fp32, TF32 off; train, "
+        f"prefill with every cache leaf, decode), max abs err {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}")
+    return errs
+
+
 def log_rows(rows):
     def fmt(x):
         return "none" if x is None else f"{x:.4f}"
@@ -1859,6 +2024,23 @@ def main() -> int:
     require(all(launches10b[k] > 0 for k in staged_path), f"a kernel did not run on phase 10's server: {launches10b}")
     sh_peak = torch.cuda.max_memory_allocated() / 2**30
 
+    # Phase 11: LM serving, Qwen2-7B at full width, its KV page
+    # index in the LSM through the DictionaryServer (earlier state freed).
+    torch.cuda.empty_cache()
+    peak_1_10 = max(peak_1_9, torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    lm_args = dict(arch="qwen2-7b", requests=16, batch=8, prompt_len=512, gen_tokens=32, page_size=16)
+    lm_out, launches11 = drive(11, lambda: drive_lm(torch, device, **lm_args))
+    require(all(launches11[k] > 0 for k in staged_path), f"a kernel did not run on phase 11's path: {launches11}")
+    lm_peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    lm = {}
+    param_bytes = sum(p.numel() * p.element_size() for p in lm_out["model"].parameters())
+    lm_params = lm_out["params_count"]
+    check_lm(torch, lm_out, lm)
+    check_families(torch, device, args.seed)
+    log(f"phase 11 checks: {time.perf_counter() - t0:.2f} s")
+
     log(f"rates ({card}): insert {rates['insert_M_elem_per_s']:.3f} M elem/s, "
         f"lookup {rates['lookup_M_q_per_s']:.3f} M q/s, count {rates['count_M_q_per_s']:.4f} M q/s, "
         f"range {rates['range_M_q_per_s']:.4f} M q/s, cleanup {rates['cleanup_s'] * 1e3:.1f} ms, "
@@ -1886,7 +2068,19 @@ def main() -> int:
         f"{sh_srv_rates['fill_M_elem_per_s']:.3f} M elem/s, step idle share {sh_srv_rates['idle_share']:.3f}, "
         f"cleanup {sh_srv_rates['cleanup_s'] * 1e3:.1f} ms; peak device memory of phase 10 {sh_peak:.2f} GiB")
     log(f"phase 10 launches: sharded dictionary {launches10a}; server {launches10b}")
-    log(f"peak device memory {max(peak_1_9, torch.cuda.max_memory_allocated()) / 2**30:.2f} GiB; "
+    a, o = lm_args, lm_out
+    step_bound_s = param_bytes / HBM_BYTES_PER_S
+    log(f"phase 11 rates ({card}): {a['arch']} at full width, {lm_params} parameters ({param_bytes} bytes in "
+        f"bf16); {a['requests']} requests in waves of {a['batch']}, prompts of {a['prompt_len']}, {a['gen_tokens']} "
+        f"tokens each; prefill {o['prefill_s']:.4f} s ({a['requests'] * a['prompt_len'] / o['prefill_s']:.1f} "
+        f"tok/s); decode {o['tokens'] / o['decode_s']:.1f} tok/s ({o['decode_s'] / (o['tokens'] / a['batch']) * 1e3:.3f} "
+        f"ms a step of {a['batch']}), bound {a['batch'] / step_bound_s:.1f} tok/s (the parameter bytes read once a "
+        f"step over 3.35 TB/s: {step_bound_s * 1e3:.3f} ms a step); served {o['tokens']} tokens in "
+        f"{o['seconds']:.3f} s ({o['tokens_per_s']:.1f} tok/s), main() {o['main_s']:.2f} s with the parameters' "
+        f"init; idle share of one decode step {lm['idle_share']:.3f}; peak device memory of the serving run "
+        f"{lm_peak:.2f} GiB; server {json.dumps(o['stats'])}")
+    log(f"phase 11 launches: {launches11}")
+    log(f"peak device memory {max(peak_1_10, torch.cuda.max_memory_allocated()) / 2**30:.2f} GiB; "
         f"total {time.perf_counter() - t_all:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))

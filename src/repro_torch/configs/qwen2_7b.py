@@ -1,0 +1,15 @@
+"""Qwen2-7B [arXiv:2407.10671; hf:Qwen/Qwen2-7B] — dense GQA decoder, QKV bias."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-7b", family="dense",
+    num_layers=28, d_model=3584, num_heads=28, num_kv_heads=4,
+    d_ff=18944, vocab_size=152064, head_dim=128,
+    qkv_bias=True, rope_theta=1_000_000.0, norm_eps=1e-6,
+)
+
+SMOKE_CONFIG = ModelConfig(
+    name="qwen2-7b-smoke", family="dense",
+    num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+    d_ff=128, vocab_size=512, head_dim=16, qkv_bias=True,
+)

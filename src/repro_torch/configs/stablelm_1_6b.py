@@ -1,0 +1,14 @@
+"""StableLM-2-1.6B [hf:stabilityai/stablelm-2-1_6b] — dense MHA decoder."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-1.6b", family="dense",
+    num_layers=24, d_model=2048, num_heads=32, num_kv_heads=32,
+    d_ff=5632, vocab_size=100352, head_dim=64,
+)
+
+SMOKE_CONFIG = ModelConfig(
+    name="stablelm-1.6b-smoke", family="dense",
+    num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
+    d_ff=128, vocab_size=512, head_dim=16,
+)

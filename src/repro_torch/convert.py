@@ -1,5 +1,5 @@
-"""Carry LSM, sharded-LSM, sorted-array and cuckoo state across between this
-package and the JAX reference.
+"""Carry LSM, sharded-LSM, sorted-array and cuckoo state, and the LM stack's
+parameters and caches, across between this package and the JAX reference.
 
 The exchange format is a mapping of numpy arrays with the field names of
 `repro.core.lsm.LSMState` (`key_vars` and `values` are sequences of one array
@@ -8,8 +8,11 @@ per level), `repro.core.sorted_array.SAState` or
 `jax.device_get(state)._asdict()` gives. The reference's sharded state is an
 `LSMState` whose every leaf has a leading shard axis ([S, ...] levels and
 buffers, [S] `r`, `buf_n` and `overflowed`); here it is a tuple of one
-`LSMState` per shard. Neither direction imports JAX: the caller converts on
-its side.
+`LSMState` per shard. A model's parameters and caches travel as the
+reference's pytree of numpy arrays (`jax.device_get(params)`): nested dicts
+and lists whose group leaves carry a leading unit axis; bf16 leaves arrive
+as numpy's 2-byte `bfloat16` extension type. Neither direction imports JAX:
+the caller converts on its side.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from repro_torch.core.cuckoo import CuckooConfig, CuckooTable
 from repro_torch.core.distributed import DistLSMConfig
 from repro_torch.core.lsm import LSMConfig, LSMState
 from repro_torch.core.sorted_array import SAConfig, SAState
+from repro_torch.models import model_zoo
 
 
 def _i32(a, device) -> torch.Tensor:
@@ -143,3 +147,81 @@ def cuckoo_table_to_numpy(table: CuckooTable) -> dict:
     bool flag); the port's `rounds` is not one of them."""
     return dict(slot_keys=_host(table.slot_keys), slot_vals=_host(table.slot_vals),
                 build_ok=np.bool_(table.build_ok))
+
+
+# -- the LM stack ---------------------------------------------------------------
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy leaf -> a tensor of the same dtype on `device` (a copy). A
+    2-byte bfloat16 array is carried bit for bit through a uint16 view."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor -> numpy on the host; bf16 widens to float32 (exact)."""
+    t = t.detach().to("cpu")
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def _leaf(tree, path):
+    for key in path:
+        tree = tree[int(key) if isinstance(tree, (list, tuple)) else key]
+    return tree
+
+
+def model_params_from_jax(cfg, tree, device) -> "model_zoo.Model":
+    """The reference's parameter tree (numpy leaves) -> a `model_zoo.Model`
+    on `device`. Each group's stacked [units, ...] leaves are unstacked into
+    its units; every leaf keeps its dtype."""
+    model = model_zoo.init_params(cfg, device="meta")
+    for name, _ in list(model.named_parameters()):
+        parts = name.split(".")
+        if parts[0] in ("groups", "enc_groups"):
+            # groups.<g>.<unit>.<sub>... -> tree[groups][g][<sub>...][unit]
+            arr = np.asarray(_leaf(tree, [parts[0], parts[1], *parts[3:]]))[int(parts[2])]
+        else:
+            arr = _leaf(tree, parts)
+        owner = model.get_submodule(".".join(parts[:-1]))
+        if tuple(np.shape(arr)) != tuple(getattr(owner, parts[-1]).shape):
+            raise ValueError(f"{name}: shape {np.shape(arr)} != {tuple(getattr(owner, parts[-1]).shape)}")
+        setattr(owner, parts[-1], torch.nn.Parameter(_tensor(arr, device)))
+    return model
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def caches_from_jax(caches, device) -> list:
+    """The reference's prefill caches (one dict per group, every leaf
+    stacked [units, ...]) -> the port's (one list of per-unit dicts per group)."""
+    out = []
+    for group in caches:
+        units = len(next(iter(_leaves(group))))
+        out.append([_map(lambda a, u=u: _tensor(np.asarray(a)[u], device), group) for u in range(units)])
+    return out
+
+
+def caches_to_numpy(caches) -> list:
+    """The port's caches -> the reference's layout as numpy (one dict per
+    group, each leaf stacked over the group's units; bf16 as float32)."""
+    def stack(units):
+        if isinstance(units[0], dict):
+            return {k: stack([u[k] for u in units]) for k in units[0]}
+        return np.stack([_numpy(t) for t in units])
+
+    return [stack(group) for group in caches]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

@@ -1,3 +1,3 @@
-"""Device placement for the port's sharded structures (PyTorch counterpart of
-repro.launch): `mesh.make_shard_mesh` places the shards of the `lsm_sharded`
-dictionary."""
+"""Entry points and device placement (PyTorch counterpart of repro.launch):
+`serve` serves an LM (`python -m repro_torch.launch.serve`);
+`mesh.make_shard_mesh` places the shards of the `lsm_sharded` dictionary."""

@@ -1,0 +1,37 @@
+"""Performance knobs the models take (PyTorch counterpart of
+repro.train.options). Every option preserves semantics and is off by default.
+
+On one device the sharding knobs (`sharded_loss`, `zero3_gather`,
+`serve_sharding`, `attn_seq_shard`) change nothing, as the reference's
+`hint` / `regather_params_tp` reduce to the identity without a mesh.
+`remat_policy` and `scan_unroll` concern training and the dry run; the
+port's eager forward reads neither.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class PerfOptions:
+    # Vocab-sharded cross entropy (a mesh layout; no effect on one device).
+    sharded_loss: bool = False
+    # ZeRO-3 weight regather per unit (a mesh layout; no effect on one device).
+    zero3_gather: bool = False
+    # Inference layout for serve steps (a mesh layout; no effect on one device).
+    serve_sharding: bool = False
+    # Sequence-sharded attention activations (a mesh layout; no effect on one device).
+    attn_seq_shard: bool = False
+    # Rematerialization: "full" (per-unit checkpoint, baseline), "dots", "none".
+    remat_policy: str = "full"
+    # Unroll layer scans: 0 = keep loops, -1 = full unroll, u > 0 = u units
+    # per loop iteration. Only the dry run's cost accounting reads it.
+    scan_unroll: int = 0
+
+
+BASELINE = PerfOptions()
+
+
+def resolve(options: "PerfOptions | None") -> PerfOptions:
+    return options if options is not None else BASELINE

@@ -381,3 +381,86 @@ def test_cuda_sharded_dictionary_matches_cpu(cuda, b, levels):
 
     got, exp = both_devices(run, cuda)
     assert_same(got, exp)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _model_outputs(cfg, model, batch):
+    """train forward, prefill(S-1) and one decode step (the reference smoke
+    test's protocol) on the model's device."""
+    from repro_torch.models import model_zoo as zoo
+
+    dev = model.embed.device
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    n_prefix = cfg.num_patches if cfg.has_vision_stub else 0
+    st = b["tokens"].shape[1]
+    with torch.inference_mode():
+        logits, aux = zoo.apply_train(cfg, model, b)
+        pre, caches = zoo.apply_prefill(cfg, model, dict(b, tokens=b["tokens"][:, :st - 1]), cache_pad_to=st + n_prefix)
+        dec, _ = zoo.apply_decode(cfg, model, b["tokens"][:, st - 1:], caches, st - 1 + n_prefix)
+    return [logits, aux, pre, dec, *_leaves(caches)]
+
+
+@pytest.fixture
+def fp32_matmuls():
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-7b", "granite-20b", "stablelm-1.6b", "codeqwen1.5-7b", "mamba2-780m",
+                                  "jamba-v0.1-52b", "olmoe-1b-7b", "deepseek-v3-671b", "internvl2-2b",
+                                  "seamless-m4t-medium"])
+def test_cuda_smoke_model_matches_cpu(cuda, fp32_matmuls, arch):
+    """fp32 with TF32 off: |card - cpu| <= 1e-4 + 1e-3 |cpu| (matrix products
+    summed in other orders, exp/tanh differing in the last bits); seamless'
+    encoder runs in bf16 whatever the weights, so it takes bf16's 2e-2."""
+    import copy
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import model_zoo as zoo
+
+    cfg = get_smoke_config(arch)
+    cpu_model = zoo.init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(1)
+    st = 32 - (cfg.num_patches if cfg.has_vision_stub else 0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, st))}
+    if cfg.has_vision_stub:
+        batch["patch_embeds"] = rng.normal(size=(2, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = rng.normal(size=(2, 16, cfg.d_model)).astype(np.float32)
+    exp = _model_outputs(cfg, cpu_model, batch)
+    got = _model_outputs(cfg, copy.deepcopy(cpu_model).to(cuda), batch)
+    tol = dict(rtol=2e-2, atol=2e-2) if cfg.is_encoder_decoder else dict(rtol=1e-3, atol=1e-4)
+    assert len(got) == len(exp)
+    for g, e in zip(got, exp):
+        assert g.device.type == "cuda" and g.dtype == e.dtype and g.shape == e.shape
+        torch.testing.assert_close(g.cpu(), e, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direct", [False, True], ids=["server", "direct"])
+def test_cuda_serve_matches_cpu(cuda, direct, capsys):
+    """Serving qwen2-7b's smoke config: the same page-table
+    results on the card as on the CPU, the index emptied at the end."""
+    from repro_torch.launch import serve
+
+    argv = ["--smoke", "--requests", "6", "--batch", "4", "--prompt-len", "24", "--page-size", "4",
+            "--gen-tokens", "3"] + (["--direct"] if direct else [])
+    got = serve.main(argv)  # the card is the default device
+    exp = serve.main(argv + ["--device", "cpu"])
+    assert got["model"].embed.device.type == "cuda"
+    assert got["waves"] == exp["waves"] == [{"pages_per_seq": [6] * 4, "free": 1000}] * 2
+    assert got["r"] == exp["r"] == 0 and got["live_pages"] == 0 and got["tokens"] == exp["tokens"]
+    assert got.get("stats") == exp.get("stats")
