@@ -83,7 +83,22 @@ Phases, one line each with its seconds:
      fp32 with the same parameters (relative L2 <= 1e-4); one decode step
      profiled; every family's smoke config on the card against the CPU
      (fp32, TF32 off). Prints prefill and decode rates beside the decode's
-     bandwidth bound (the parameter bytes read once a step).
+     bandwidth bound (the parameter bytes read once a step);
+ 12. the LM stack's training entry point, `python -m repro_torch.launch.train
+     --arch stablelm-1.6b --batch 8 --seq 2048 --steps 20` at full width (24
+     layers, d_model 2048, vocab 100352; random bf16 parameters from a
+     seeded generator on the card, fp32 AdamW moments, remat "full", the
+     dedup pipeline's LSM on the card, no checkpoint written): every loss and
+     grad norm finite, the last loss below the first, the launch counts of
+     `fused_lookup`, `bitonic_sort` and `merge_cascade` positive; one more
+     step profiled (idle share, top kernels, the AdamW range's share) and the
+     AdamW pass alone beside its bound; every family's smoke config, one
+     train step on the card against the CPU (fp32, TF32 off); the
+     supervisor on the card under deterministic algorithms (in a child
+     process, which sets CUBLAS_WORKSPACE_CONFIG), a failure
+     before the first save and one after a save each ending bit for bit
+     equal to an unbroken run. Prints the step time beside its FLOP bound
+     (`model_flops` over 989 TFLOP/s), tokens/s, MFU and peak memory.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before it. Without a CUDA device, or without the repository's src/ beside
 it, the script exits non-zero and prints no result.
@@ -95,6 +110,7 @@ import argparse
 import ctypes
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -866,11 +882,13 @@ def sa_lookup_line(torch, device, sa_d, rows, errs, seed):
         f"(bound {also[0]['bound_ms']:.5f}, by sectors {also[0]['sector_bound_ms']:.5f}, plain {plain:.4f})")
 
 
-def profile(torch, what, fn, top=5, show=(), phase=5, out=None):
+def profile(torch, what, fn, top=5, show=(), ranges=(), phase=5, out=None):
     """`fn()` under torch.profiler: wall time, device busy time (the sum of
-    kernel times on the one stream), the `top` kernels and the time and busy
-    share of the kernels named in `show`. Returns fn's result; the idle share
-    goes into `out["idle_share"]` when `out` is given."""
+    kernel times on the one stream), the `top` kernels, the time and busy
+    share of the kernels named in `show` and of the kernels launched inside
+    each `record_function` range named in `ranges`. Returns fn's result; the
+    idle share, wall and busy ms and each range's ms go into `out` when it is
+    given."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -879,7 +897,8 @@ def profile(torch, what, fn, top=5, show=(), phase=5, out=None):
         res = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(e.self_device_time_total for e in kernels)
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
     log(f"phase {phase} profile: {what}, wall {wall_us / 1e3:.2f} ms, device busy "
@@ -888,8 +907,14 @@ def profile(torch, what, fn, top=5, show=(), phase=5, out=None):
     for name in show:
         us = sum(e.self_device_time_total for e in kernels if name in e.key)
         log(f"  {name}: {us / 1e3:.4f} ms, {us / busy_us:.4f} of device busy")
+    for name in ranges:
+        host = [e for e in prof.key_averages() if e.key == name and e.device_type.name == "CPU"]
+        us = host[0].device_time_total if host else float("nan")
+        log(f"  range {name}: {us / 1e3:.4f} ms of kernels, {us / busy_us:.4f} of device busy")
+        if out is not None:
+            out[f"{name}_ms"] = us / 1e3
     if out is not None:
-        out["idle_share"] = 1 - busy_us / wall_us
+        out.update(idle_share=1 - busy_us / wall_us, wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3)
     return res
 
 
@@ -1881,6 +1906,183 @@ def check_families(torch, device, seed):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# phase 12: LM training at full width with the LSM dedup pipeline
+# ---------------------------------------------------------------------------
+
+# H100 SXM dense bf16 tensor-core peak (NVIDIA's datasheet, without sparsity).
+BF16_FLOPS_PER_S = 989e12
+
+
+def drive_train(torch, device, *, arch, steps, batch, seq, ckpt_dir, smoke=False):
+    """`python -m repro_torch.launch.train` as a user runs it, on the card:
+    random bf16 parameters from a generator seeded 0 on the card, the dedup
+    index on the card, remat "full", no checkpoint written (--save-every
+    above --steps). Every logged loss and grad norm finite, the last loss
+    below the first (examples/train_lm.py's check)."""
+    from repro_torch.launch import train
+
+    argv = ["--arch", arch, "--steps", str(steps), "--batch", str(batch), "--seq", str(seq), "--log-every", "1",
+            "--save-every", str(steps + 1), "--ckpt-dir", str(ckpt_dir), "--device", str(device)] + (
+                ["--smoke"] if smoke else [])
+    log(f"phase 12 train: python -m repro_torch.launch.train {' '.join(argv)}")
+    t0 = time.perf_counter()
+    out = train.run(argv)
+    out["main_s"] = time.perf_counter() - t0
+    rec = out["log"]
+    require([r["step"] for r in rec] == list(range(steps)), f"logged steps {[r['step'] for r in rec]}")
+    require(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rec),
+            f"a non-finite loss or grad norm: {[(r['loss'], r['grad_norm']) for r in rec]}")
+    require(rec[-1]["loss"] < rec[0]["loss"], f"the loss did not decrease: {rec[0]['loss']} -> {rec[-1]['loss']}")
+    return out
+
+
+def check_train(torch, out, rates):
+    """One more step of the run (batch, dedup, train step) under the
+    profiler, its AdamW range's share of the device time; the AdamW pass
+    alone timed with CUDA events on the run's state."""
+    from repro_torch.data.pipeline import dedup_batch, make_batch
+    from repro_torch.optim.adam import AdamConfig, adam_update
+
+    model, state, pcfg = out["model"], out["state"], out["pipe_cfg"]
+    step = out["done"]
+
+    def one_step():
+        b = make_batch(pcfg, 0, step)
+        pipe, b, _ = dedup_batch(pcfg, state["pipe"], b, 0, step)
+        return out["train_step"](model, state["opt"], b)[2]
+
+    metrics = profile(torch, f"one train step of {pcfg.batch_per_shard} x {pcfg.seq_len} tokens (dedup, forward, "
+                             f"backward with remat, AdamW)", one_step, top=8,
+                      show=("fused_lookup_kernel", "block_sort_kernel", "kway_merge_kernel"), ranges=("adam_update",),
+                      phase=12, out=rates)
+    require(math.isfinite(float(metrics["loss"])), "non-finite loss in the profiled step")
+    grads = {n: torch.full_like(p, 1e-3) for n, p in model.named_parameters()}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start.record()
+        adam_update(AdamConfig(), model, grads, state["opt"])
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    rates["adam_ms"] = min(times)
+    del grads
+
+
+def check_train_families(torch, device, seed):
+    """Every family's smoke config: one train step (remat "full", AdamW with
+    eps 1e-6, so that no gradient at fp32 noise picks an update's sign) on
+    the card against the same step on the CPU, fp32 with TF32 off. Loss,
+    aux, grad_norm and lr at rtol 1e-4; every updated parameter and both
+    moments within 1e-3 of the tensor's largest magnitude on the CPU; the
+    audio encoder (bf16 whatever the weights) at 2e-2 elementwise."""
+    import copy
+
+    from repro_torch.configs.base import ARCH_IDS, get_smoke_config
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.optim.adam import AdamConfig, adam_init
+    from repro_torch.train.steps import make_train_step
+
+    ocfg = AdamConfig(lr=1e-3, eps=1e-6, warmup_steps=2, total_steps=10)
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    errs = {}
+    try:
+        for arch in ARCH_IDS:
+            cfg = get_smoke_config(arch)
+            cpu_model = zoo.init_params(cfg, seed=seed, device="cpu", dtype=torch.float32)
+            rng = np.random.default_rng(seed)
+            st = 32 - (cfg.num_patches if cfg.has_vision_stub else 0)
+            batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, st)),
+                     "labels": rng.integers(0, cfg.vocab_size, (2, st))}
+            if cfg.has_vision_stub:
+                batch["patch_embeds"] = rng.normal(size=(2, cfg.num_patches, cfg.d_model)).astype(np.float32)
+            if cfg.is_encoder_decoder:
+                batch["frames"] = rng.normal(size=(2, 16, cfg.d_model)).astype(np.float32)
+            card_model = copy.deepcopy(cpu_model).to(device)  # before the CPU step updates cpu_model
+            res = {}
+            for where, model in (("cpu", cpu_model), ("card", card_model)):
+                dev = model.embed.device
+                b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+                model, opt, metrics = make_train_step(cfg, ocfg)(model, adam_init(ocfg, model), b)
+                res[where] = (metrics, dict(model.named_parameters()), opt.m, opt.v)
+            (gm, *got), (em, *exp) = res["card"], res["cpu"]
+            for k in ("loss", "aux_loss", "grad_norm", "lr"):
+                require(math.isclose(gm[k].item(), em[k].item(), rel_tol=1e-4, abs_tol=1e-7),
+                        f"{arch}: {k} {gm[k].item()} on the card, {em[k].item()} on the CPU")
+            err = 0.0
+            for g_tree, e_tree in zip(got, exp):
+                for name, e in e_tree.items():
+                    g, e = g_tree[name].detach().cpu().float(), e.detach().float()
+                    require(bool(torch.isfinite(g).all()), f"{arch} {name}: non-finite on the card")
+                    if name.startswith("enc_"):
+                        require(torch.allclose(g, e, rtol=2e-2, atol=2e-2), f"{arch} {name}: card differs from the CPU")
+                    else:
+                        d = (g - e).abs().max().item()
+                        require(d <= 1e-3 * e.abs().max().item(), f"{arch} {name}: max err {d} on the card")
+                        err = max(err, d / max(e.abs().max().item(), 1e-30))
+            errs[arch] = err
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    log(f"phase 12 families: {len(errs)} smoke configs, one train step on the card against the CPU (fp32, TF32 "
+        f"off; metrics, parameters, m, v), max error over the tensor's largest magnitude "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}")
+    return errs
+
+
+def check_supervisor(torch, device, ckpt_root):
+    """The training driver's fault tolerance on the card, StableLM's smoke
+    config under torch.use_deterministic_algorithms(True): a failure before
+    the first save (restart from the initial state) and one after a save
+    (restore from the checkpoint) each end bit for bit equal to an unbroken
+    run: parameters, moments, the dedup index with its host fields, losses."""
+    import shutil
+
+    from repro_torch.checkpoint.checkpoint import tree_flatten_with_path
+    from repro_torch.launch import train
+
+    argv = ["--arch", "stablelm-1.6b", "--smoke", "--steps", "6", "--batch", "8", "--seq", "16", "--log-every", "1",
+            "--device", str(device)]
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = {name: train.run(argv + ["--ckpt-dir", str(ckpt_root / name), *extra]) for name, extra in (
+            ("unbroken", []), ("early", ["--fail-at", "2", "--save-every", "50"]),
+            ("late", ["--fail-at", "4", "--save-every", "2"]))}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    require("RESTART from initial state (no checkpoint)" in runs["early"]["supervisor_log"],
+            f"early failure: {runs['early']['supervisor_log']}")
+    require("RESTART from checkpoint step 4" in runs["late"]["supervisor_log"],
+            f"late failure: {runs['late']['supervisor_log']}")
+    exp = tree_flatten_with_path(runs["unbroken"]["state"])[0]
+    require(exp[0][1].device.type == device.type, f"the state is not on {device}")
+    for name in ("early", "late"):
+        got = tree_flatten_with_path(runs[name]["state"])[0]
+        require([p for p, _ in got] == [p for p, _ in exp], f"{name}: the state's structure differs")
+        for (path, a), (_, b) in zip(got, exp):
+            same = torch.equal(a, b) if isinstance(b, torch.Tensor) else a == b
+            require(same, f"{name}: {path} differs from the unbroken run")
+        require(runs[name]["losses"][-6:] == runs["unbroken"]["losses"], f"{name}: losses differ")
+    log(f"phase 12 supervisor: restart from the initial state (failure at step 2, no save) and from the checkpoint "
+        f"of step 4 (failure at step 4, saves every 2) each equal to the unbroken run bit for bit ({len(exp)} "
+        f"leaves: parameters, moments, dedup index); losses {[round(v, 4) for v in runs['unbroken']['losses']]}")
+
+
+def check_supervisor_on_card(ckpt_root):
+    """`check_supervisor` on the card in a child process: deterministic
+    algorithms need CUBLAS_WORKSPACE_CONFIG set before CUDA starts, and the
+    other phases keep cuBLAS's default workspace."""
+    code = ("import sys, torch; from pathlib import Path; sys.path[:0] = [{!r}, {!r}]; import chip_smoke as c; "
+            "c.check_supervisor(torch, torch.device('cuda'), Path({!r}))").format(str(ROOT / "src"), str(ROOT),
+                                                                                str(ckpt_root))
+    res = subprocess.run([sys.executable, "-c", code], env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"),
+                         timeout=900)
+    require(res.returncode == 0, f"the supervisor check on the card failed (exit {res.returncode})")
+
+
 def log_rows(rows):
     def fmt(x):
         return "none" if x is None else f"{x:.4f}"
@@ -2041,6 +2243,33 @@ def main() -> int:
     check_families(torch, device, args.seed)
     log(f"phase 11 checks: {time.perf_counter() - t0:.2f} s")
 
+    # Phase 12: LM training, StableLM-2-1.6B at full width with the LSM
+    # dedup pipeline on the card (phase 11's model freed first).
+    del lm_out["cfg"], lm_out["prompts"]
+    torch.cuda.empty_cache()
+    peak_1_11 = max(peak_1_10, torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    tr_args = dict(arch="stablelm-1.6b", steps=20, batch=8, seq=2048)
+    tr_out, launches12 = drive(12, lambda: drive_train(torch, device, **tr_args,
+                                                       ckpt_dir=ROOT / "build" / "train_ckpt"))
+    require(all(launches12[k] > 0 for k in ("fused_lookup", "bitonic_sort", "merge_cascade")),
+            f"a kernel of the dedup pipeline did not run on phase 12's path: {launches12}")
+    tr = {}
+    t0 = time.perf_counter()
+    check_train(torch, tr_out, tr)
+    tr_peak = torch.cuda.max_memory_allocated() / 2**30
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.models import model_zoo as zoo
+
+    flops = zoo.model_flops(get_config(tr_args["arch"]), InputShape("train", "train", tr_args["seq"], tr_args["batch"]))
+    tr_params = sum(p.numel() for p in tr_out["model"].parameters())
+    del tr_out["model"], tr_out["state"], tr_out["train_step"]
+    torch.cuda.empty_cache()
+    check_train_families(torch, device, args.seed)
+    check_supervisor_on_card(ROOT / "build" / "train_ckpt")
+    log(f"phase 12 checks: {time.perf_counter() - t0:.2f} s")
+
     log(f"rates ({card}): insert {rates['insert_M_elem_per_s']:.3f} M elem/s, "
         f"lookup {rates['lookup_M_q_per_s']:.3f} M q/s, count {rates['count_M_q_per_s']:.4f} M q/s, "
         f"range {rates['range_M_q_per_s']:.4f} M q/s, cleanup {rates['cleanup_s'] * 1e3:.1f} ms, "
@@ -2080,7 +2309,24 @@ def main() -> int:
         f"init; idle share of one decode step {lm['idle_share']:.3f}; peak device memory of the serving run "
         f"{lm_peak:.2f} GiB; server {json.dumps(o['stats'])}")
     log(f"phase 11 launches: {launches11}")
-    log(f"peak device memory {max(peak_1_10, torch.cuda.max_memory_allocated()) / 2**30:.2f} GiB; "
+    steps_s = [r["step_s"] for r in tr_out["log"]]
+    tokens = tr_args["batch"] * tr_args["seq"]
+    step_s = sorted(steps_s[1:])[len(steps_s[1:]) // 2]  # median, the first step's warm-up left out
+    adam_bound_ms = tr_params * 22 / HBM_BYTES_PER_S * 1e3
+    log(f"phase 12 rates ({card}): {tr_args['arch']} at full width, {tr_params} parameters; {tr_args['steps']} "
+        f"steps of {tr_args['batch']} x {tr_args['seq']} tokens with dedup and remat 'full'; step time median "
+        f"{step_s * 1e3:.1f} ms (first {steps_s[0] * 1e3:.1f}, min {min(steps_s) * 1e3:.1f}, max "
+        f"{max(steps_s) * 1e3:.1f}), {tokens / step_s:.1f} tok/s; FLOP bound {flops / BF16_FLOPS_PER_S * 1e3:.1f} ms "
+        f"({flops:.4e} FLOP at 989 TFLOP/s), MFU {flops / step_s / BF16_FLOPS_PER_S:.4f}; profiled step wall "
+        f"{tr['wall_ms']:.1f} ms, device busy {tr['busy_ms']:.1f} ms, idle share {tr['idle_share']:.4f}; "
+        f"AdamW range {tr['adam_update_ms']:.2f} ms in the profile ({tr['adam_update_ms'] / tr['busy_ms']:.4f} of "
+        f"device busy), "
+        f"alone {tr['adam_ms']:.2f} ms (bound {adam_bound_ms:.2f} ms: 22 bytes a parameter over 3.35 TB/s); peak "
+        f"device memory of the training run {tr_peak:.2f} GiB (driver's own reading "
+        f"{(tr_out['peak_mem_bytes'] or 0) / 2**30:.2f} GiB); dups per step {[r['dups'] for r in tr_out['log']]}; "
+        f"losses {[round(r['loss'], 4) for r in tr_out['log']]}; main() {tr_out['main_s']:.2f} s")
+    log(f"phase 12 launches: {launches12}")
+    log(f"peak device memory {max(peak_1_11, tr_peak * 2**30, torch.cuda.max_memory_allocated()) / 2**30:.2f} GiB; "
         f"total {time.perf_counter() - t_all:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))

@@ -1,5 +1,6 @@
 """Carry LSM, sharded-LSM, sorted-array and cuckoo state, and the LM stack's
-parameters and caches, across between this package and the JAX reference.
+parameters, caches and AdamW state, across between this package and the JAX
+reference.
 
 The exchange format is a mapping of numpy arrays with the field names of
 `repro.core.lsm.LSMState` (`key_vars` and `values` are sequences of one array
@@ -11,7 +12,8 @@ buffers, [S] `r`, `buf_n` and `overflowed`); here it is a tuple of one
 `LSMState` per shard. A model's parameters and caches travel as the
 reference's pytree of numpy arrays (`jax.device_get(params)`): nested dicts
 and lists whose group leaves carry a leading unit axis; bf16 leaves arrive
-as numpy's 2-byte `bfloat16` extension type. Neither direction imports JAX:
+as numpy's 2-byte `bfloat16` extension type. The AdamW moments mirror that
+tree there, and the port's parameter names here. Neither direction imports JAX:
 the caller converts on its side.
 """
 
@@ -25,6 +27,7 @@ from repro_torch.core.distributed import DistLSMConfig
 from repro_torch.core.lsm import LSMConfig, LSMState
 from repro_torch.core.sorted_array import SAConfig, SAState
 from repro_torch.models import model_zoo
+from repro_torch.optim.adam import STACKED, AdamState, named, stacked_key
 
 
 def _i32(a, device) -> torch.Tensor:
@@ -173,6 +176,14 @@ def _leaf(tree, path):
     return tree
 
 
+def _unstacked(tree, name):
+    """The reference tree's leaf of the port's parameter `name`: for a group's
+    unit, groups.<g>.<unit>.<sub>... -> tree[groups][g][<sub>...][unit]."""
+    key, unit = stacked_key(name)
+    arr = _leaf(tree, key)
+    return np.asarray(arr)[unit] if key[0] in STACKED else arr
+
+
 def model_params_from_jax(cfg, tree, device) -> "model_zoo.Model":
     """The reference's parameter tree (numpy leaves) -> a `model_zoo.Model`
     on `device`. Each group's stacked [units, ...] leaves are unstacked into
@@ -180,16 +191,63 @@ def model_params_from_jax(cfg, tree, device) -> "model_zoo.Model":
     model = model_zoo.init_params(cfg, device="meta")
     for name, _ in list(model.named_parameters()):
         parts = name.split(".")
-        if parts[0] in ("groups", "enc_groups"):
-            # groups.<g>.<unit>.<sub>... -> tree[groups][g][<sub>...][unit]
-            arr = np.asarray(_leaf(tree, [parts[0], parts[1], *parts[3:]]))[int(parts[2])]
-        else:
-            arr = _leaf(tree, parts)
+        arr = _unstacked(tree, name)
         owner = model.get_submodule(".".join(parts[:-1]))
         if tuple(np.shape(arr)) != tuple(getattr(owner, parts[-1]).shape):
             raise ValueError(f"{name}: shape {np.shape(arr)} != {tuple(getattr(owner, parts[-1]).shape)}")
         setattr(owner, parts[-1], torch.nn.Parameter(_tensor(arr, device)))
     return model
+
+
+def _stacked_tree(tensors) -> dict:
+    """name -> tensor (the port's parameter names) -> the reference's tree:
+    nested dicts, a list per group axis, each group leaf stacked over its
+    units; numpy, bf16 as float32."""
+    leaves: dict = {}
+    for name, t in tensors.items():
+        key, unit = stacked_key(name)
+        leaves.setdefault(key, {})[unit] = _numpy(t)
+    tree: dict = {}
+    for key, units in leaves.items():
+        node = tree
+        for k in key[:-1]:
+            node = node.setdefault(k, {})
+        node[key[-1]] = np.stack([units[u] for u in sorted(units)]) if key[0] in STACKED else units[0]
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(isinstance(k, int) for k in node):
+            return [lists(node[i]) for i in sorted(node)]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
+
+
+def model_params_to_numpy(params) -> dict:
+    """A `Model`'s parameters (or name -> tensor) as the reference's tree of
+    numpy arrays (group leaves stacked over units; bf16 as float32)."""
+    return _stacked_tree(named(params))
+
+
+def adam_state_from_jax(cfg, state, device) -> AdamState:
+    """The reference's `AdamState` (numpy leaves, or a mapping with m, v,
+    step) -> the port's: m and v by parameter name on `device`, unstacked as
+    `model_params_from_jax` does, each leaf in its stored dtype."""
+    get = (lambda k: state[k]) if isinstance(state, dict) else (lambda k: getattr(state, k))
+    names = [n for n, _ in model_zoo.init_params(cfg, device="meta").named_parameters()]
+    m, v = get("m"), get("v")
+    return AdamState(
+        m={n: _tensor(_unstacked(m, n), device) for n in names},
+        v={n: _tensor(_unstacked(v, n), device) for n in names},
+        step=torch.tensor(int(np.asarray(get("step"))), dtype=torch.int32, device=device),
+    )
+
+
+def adam_state_to_numpy(state: AdamState) -> dict:
+    """The port's `AdamState` as the reference's fields: m and v as its
+    parameter tree (numpy, bf16 as float32), step an int32 scalar."""
+    return dict(m=_stacked_tree(state.m), v=_stacked_tree(state.v), step=np.int32(int(state.step)))
 
 
 def _map(fn, tree):

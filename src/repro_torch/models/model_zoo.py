@@ -24,7 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import InputShape
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.train.options import PerfOptions
+from repro_torch.train.options import PerfOptions, resolve as resolve_options
 
 # Encoder frame count for the audio (enc-dec) architecture, all shapes.
 AUDIO_ENC_LEN = 4096
@@ -76,13 +76,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None, dtype: torch.dt
 # ---------------------------------------------------------------------------
 
 
-def _encode(cfg, params: Model, frames):
+def _encode(cfg, params: Model, frames, options: Optional[PerfOptions] = None):
     """Audio encoder over stub frame embeddings (bidirectional). The frames
     enter in bf16 whatever the parameters' dtype, as in the reference."""
+    opts = resolve_options(options)
     x = frames.to(L.DTYPE)
     positions = torch.arange(x.shape[1], device=x.device)
     for group in params.enc_groups:
-        x, _ = T.group_apply_train(cfg, group, _ENC_DESCS, x, positions, causal=False)
+        x, _ = T.group_apply_train(cfg, group, _ENC_DESCS, x, positions, causal=False,
+                                   remat_policy=opts.remat_policy)
     return L.rms_norm(params.enc_final_norm, x, cfg.norm_eps)
 
 
@@ -108,15 +110,17 @@ def _head(cfg, params: Model, x):
 
 
 def apply_train(cfg: ModelConfig, params: Model, batch, options: Optional[PerfOptions] = None):
-    """Returns (logits [B,St,V], aux_loss scalar). `options` is accepted for
-    the reference's signature; on one device none of its knobs acts."""
-    del options
-    enc_out = _encode(cfg, params, batch["frames"]) if cfg.is_encoder_decoder else None
+    """Returns (logits [B,St,V], aux_loss scalar). Of `options` only
+    `remat_policy` acts on one device: under autograd each unit (and each
+    audio encoder unit) is rematerialised by it."""
+    opts = resolve_options(options)
+    enc_out = _encode(cfg, params, batch["frames"], opts) if cfg.is_encoder_decoder else None
     x, n_prefix = _embed_inputs(cfg, params, batch["tokens"], batch)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for group, (count, descs) in zip(params.groups, T.decoder_plan(cfg)):
-        x, a = T.group_apply_train(cfg, group, descs, x, positions, enc_out=enc_out)
+        x, a = T.group_apply_train(cfg, group, descs, x, positions, enc_out=enc_out,
+                                   remat_policy=opts.remat_policy)
         aux = aux + a
     if n_prefix:
         x = x[:, n_prefix:]

@@ -12,16 +12,19 @@ unit is a short list of sublayer descriptors (mixer, ffn):
 
 The reference stacks a group's unit parameters on a leading axis and runs
 `lax.scan` over them; here a group is an `nn.ModuleList` of units and the
-scan is a loop. Caches follow: a group's cache is a list of one dict per
-unit, {"sub{j}": {mixer: {...}, "cross": {...}}}.
+scan is a loop; training rematerialises each unit as the reference's
+jax.checkpoint does (`remat_policy`). Caches follow: a group's cache is a
+list of one dict per unit, {"sub{j}": {mixer: {...}, "cross": {...}}}.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -188,12 +191,48 @@ def group_init(init: L.Init, cfg: ModelConfig, count: int, descs, cross: bool = 
     )
 
 
-def group_apply_train(cfg, group, descs, x, positions, enc_out=None, causal=True):
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for unit in group:
+def _save_plain_products(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of 2-D matrix products (jax's
+    dots_with_no_batch_dims_saveable), recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(remat_policy: str):
+    """How a training unit runs under autograd: "full" keeps only its inputs
+    and recomputes it in the backward pass, "dots" also keeps its plain
+    matrix products, "none" keeps every activation."""
+    if remat_policy == "full":
+        return functools.partial(checkpoint, use_reentrant=False, preserve_rng_state=False)
+    if remat_policy == "dots":
+        return functools.partial(
+            checkpoint, use_reentrant=False, preserve_rng_state=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_plain_products))
+    if remat_policy == "none":
+        return None
+    raise ValueError(remat_policy)
+
+
+def group_apply_train(cfg, group, descs, x, positions, enc_out=None, causal=True, remat_policy="full"):
+    """The group's units in order. Under autograd each unit is
+    rematerialised by `remat_policy`, as the reference wraps its scan body in
+    jax.checkpoint; with gradients off (prefill, serving) it runs as it is.
+    The forward draws no random numbers, so no RNG state is stashed."""
+    remat = _remat(remat_policy)
+
+    def body(unit, x, aux):
         for j in range(len(descs)):
             x, _, a = sublayer_apply(cfg, unit[f"sub{j}"], x, positions, "train", enc_out=enc_out, causal=causal)
             aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for unit in group:
+        if remat is not None and torch.is_grad_enabled():
+            x, aux = remat(body, unit, x, aux)
+        else:
+            x, aux = body(unit, x, aux)
     return x, aux
 
 

@@ -1,1 +1,1 @@
-"""Training-side options the models take (PyTorch counterpart of repro.train)."""
+"""Training-side options and step functions (PyTorch counterpart of repro.train)."""

@@ -4,8 +4,8 @@ repro.train.options). Every option preserves semantics and is off by default.
 On one device the sharding knobs (`sharded_loss`, `zero3_gather`,
 `serve_sharding`, `attn_seq_shard`) change nothing, as the reference's
 `hint` / `regather_params_tp` reduce to the identity without a mesh.
-`remat_policy` and `scan_unroll` concern training and the dry run; the
-port's eager forward reads neither.
+`remat_policy` sets how the training forward rematerialises each unit
+(models/transformer.py); `scan_unroll` concerns the dry run only.
 """
 
 from __future__ import annotations

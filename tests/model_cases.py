@@ -1,6 +1,7 @@
 """Shared inputs of the LM-stack parity tests (test_torch_models.py,
-test_torch_launch_serve.py): reference parameter trees filled from a numpy
-seed, their conversion to the port, and comparison helpers."""
+test_torch_launch_serve.py, test_torch_train.py, test_torch_checkpoint.py):
+reference parameter trees filled from a numpy seed, their conversion to the
+port, comparison helpers, and the reference driver's one-device mesh."""
 
 import jax
 import jax.numpy as jnp
@@ -63,3 +64,13 @@ def f32(x) -> np.ndarray:
 
 def close(got, exp, tol, what=""):
     np.testing.assert_allclose(f32(got), f32(exp), err_msg=what, **tol)
+
+
+def one_device_mesh():
+    """The reference driver's data x model mesh over one device, the port's
+    layout. Its best-fit mesh over the conftest's 4 host devices would shard
+    the step 4 ways, and XLA's in-process CPU collectives have hung such a
+    step under a loaded test run."""
+    from repro.compat import AxisType, make_mesh
+
+    return make_mesh((1, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2, devices=jax.devices()[:1])

@@ -6,9 +6,15 @@ the suite's conftest (it imports JAX, which this file does not need):
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
+
+# cuBLAS reads this when CUDA starts; the supervisor test below runs under
+# torch.use_deterministic_algorithms(True), which requires it.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 from repro_torch.kernels import bitonic_sort, lsm_lookup, merge_path
 from torch_cases import (
@@ -464,3 +470,97 @@ def test_cuda_serve_matches_cpu(cuda, direct, capsys):
     assert got["waves"] == exp["waves"] == [{"pages_per_seq": [6] * 4, "free": 1000}] * 2
     assert got["r"] == exp["r"] == 0 and got["live_pages"] == 0 and got["tokens"] == exp["tokens"]
     assert got.get("stats") == exp.get("stats")
+
+
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+# eps 1e-6: at the default 1e-8 an element whose gradient is at fp32 noise
+# takes an update of either sign (tests/test_torch_train.py).
+STEP_CFG = dict(lr=1e-3, eps=1e-6, warmup_steps=2, total_steps=10)
+
+
+def _train_step(cfg, model, batch):
+    """One train step on the model's device: (metrics, parameters, m, v) by name."""
+    from repro_torch.optim.adam import AdamConfig, adam_init
+    from repro_torch.train.steps import make_train_step
+
+    dev = model.embed.device
+    ocfg = AdamConfig(**STEP_CFG)
+    model, opt, metrics = make_train_step(cfg, ocfg)(
+        model, adam_init(ocfg, model), {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+    return metrics, {n: p.detach() for n, p in model.named_parameters()}, opt.m, opt.v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-7b", "granite-20b", "stablelm-1.6b", "codeqwen1.5-7b", "mamba2-780m",
+                                  "jamba-v0.1-52b", "olmoe-1b-7b", "deepseek-v3-671b", "internvl2-2b",
+                                  "seamless-m4t-medium"])
+def test_cuda_train_step_matches_cpu(cuda, fp32_matmuls, arch):
+    """One train step (remat "full", AdamW) in fp32 with TF32 off: loss,
+    aux, grad_norm, lr at rtol 1e-4; every updated parameter and both
+    moments within 1e-3 of the tensor's largest magnitude on the CPU. The
+    audio encoder runs in bf16 whatever the weights: its leaves take bf16's
+    2e-2 elementwise."""
+    import copy
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import model_zoo as zoo
+
+    cfg = get_smoke_config(arch)
+    cpu_model = zoo.init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
+    card_model = copy.deepcopy(cpu_model).to(cuda)
+    rng = np.random.default_rng(1)
+    st = 32 - (cfg.num_patches if cfg.has_vision_stub else 0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, st)), "labels": rng.integers(0, cfg.vocab_size, (2, st))}
+    if cfg.has_vision_stub:
+        batch["patch_embeds"] = rng.normal(size=(2, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = rng.normal(size=(2, 16, cfg.d_model)).astype(np.float32)
+    exp = _train_step(cfg, cpu_model, batch)
+    got = _train_step(cfg, card_model, batch)
+    for k in ("loss", "aux_loss", "grad_norm", "lr"):
+        torch.testing.assert_close(got[0][k].cpu(), exp[0][k], rtol=1e-4, atol=1e-7)
+    for g_tree, e_tree in zip(got[1:], exp[1:]):
+        for name, e in e_tree.items():
+            g = g_tree[name]
+            assert g.device.type == "cuda" and g.dtype == e.dtype and g.shape == e.shape, name
+            if name.startswith("enc_"):
+                torch.testing.assert_close(g.cpu().float(), e.float(), rtol=2e-2, atol=2e-2)
+            else:
+                err = (g.cpu().float() - e.float()).abs().max().item()
+                assert err <= 1e-3 * e.float().abs().max().item(), (name, err)
+
+
+@pytest.fixture
+def deterministic():
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.cuda
+def test_cuda_supervisor_restarts_equal_unbroken_run(cuda, deterministic, tmp_path):
+    """The training driver on the card (stablelm's smoke config, the dedup
+    index on the card): a failure before the first save (restart from the
+    initial state) and one after a save (restore from the checkpoint) each
+    end bit for bit equal to an unbroken run: parameters, moments, the dedup
+    index and its host fields, and every logged loss."""
+    from repro_torch.checkpoint.checkpoint import tree_flatten_with_path
+    from repro_torch.launch import train
+
+    argv = ["--smoke", "--steps", "6", "--batch", "8", "--seq", "16", "--log-every", "1"]
+    runs = {name: train.run(argv + ["--ckpt-dir", str(tmp_path / name), *extra]) for name, extra in (
+        ("unbroken", []), ("early", ["--fail-at", "2", "--save-every", "50"]),
+        ("late", ["--fail-at", "4", "--save-every", "2"]))}
+    assert "RESTART from initial state (no checkpoint)" in runs["early"]["supervisor_log"]
+    assert "RESTART from checkpoint step 4" in runs["late"]["supervisor_log"]
+    exp = tree_flatten_with_path(runs["unbroken"]["state"])[0]
+    assert exp[0][1].device.type == "cuda"
+    for name in ("early", "late"):
+        got = tree_flatten_with_path(runs[name]["state"])[0]
+        assert [p for p, _ in got] == [p for p, _ in exp]
+        for (path, a), (_, b) in zip(got, exp):
+            assert (torch.equal(a, b) and a.device == b.device) if isinstance(b, torch.Tensor) else a == b, (name, path)
+        assert runs[name]["losses"][-6:] == runs["unbroken"]["losses"], name

@@ -32,7 +32,8 @@ def test_no_jax_or_reference_imports(path):
 def test_import_leaves_jax_unloaded():
     code = (
         "import sys, repro_torch, repro_torch.api, repro_torch.convert, repro_torch.kernels.ops,"
-        " repro_torch.models.model_zoo, repro_torch.launch.serve;"
+        " repro_torch.models.model_zoo, repro_torch.launch.serve, repro_torch.launch.train,"
+        " repro_torch.optim.adam, repro_torch.checkpoint.checkpoint;"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'));"
         "print(bad); sys.exit(1 if bad else 0)"
     )
