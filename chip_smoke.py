@@ -98,7 +98,21 @@ Phases, one line each with its seconds:
      process, which sets CUBLAS_WORKSPACE_CONFIG), a failure
      before the first save and one after a save each ending bit for bit
      equal to an unbroken run. Prints the step time beside its FLOP bound
-     (`model_flops` over 989 TFLOP/s), tokens/s, MFU and peak memory.
+     (`model_flops` over 989 TFLOP/s), tokens/s, MFU and peak memory;
+ 13. the LM stack's multi-device layer: (a) `python -m
+     repro_torch.launch.dryrun --all` in-process, the sharding plan of every
+     (arch x shape) cell on both production meshes (16x16, 2x16x16) on the
+     meta device, 0 failures, each arch's train_4k per-device bytes of
+     parameters, gradients and moments (a CPU computation); (b) int8
+     gradient compression with error feedback (`compressed_tree_psum`) of 4
+     ranks of StableLM-2-1.6B's gradients at full width (bf16, random from a
+     seeded generator), all on this card one after another: one call timed
+     beside its byte bound, held bit for bit against the CPU on a sample of
+     leaves (the largest among them), one call profiled (idle share), peak
+     memory, and 64 calls on a constant fp32 gradient averaging to it; (c)
+     in phase 12's child process, the training driver's --resume through
+     restore(shardings=plan) onto the card, bit for bit equal to an
+     unbroken run.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before it. Without a CUDA device, or without the repository's src/ beside
 it, the script exits non-zero and prints no result.
@@ -2049,7 +2063,11 @@ def check_supervisor(torch, device, ckpt_root):
     try:
         runs = {name: train.run(argv + ["--ckpt-dir", str(ckpt_root / name), *extra]) for name, extra in (
             ("unbroken", []), ("early", ["--fail-at", "2", "--save-every", "50"]),
-            ("late", ["--fail-at", "4", "--save-every", "2"]))}
+            ("late", ["--fail-at", "4", "--save-every", "2"]), ("saved", ["--save-every", "3"]))}
+        # Phase 13c: --resume restores through the driver's sharding plan
+        # (restore(shardings=plan), every leaf onto this card).
+        shutil.rmtree(ckpt_root / "saved" / "step_00000006")
+        runs["resumed"] = train.run(argv + ["--ckpt-dir", str(ckpt_root / "saved"), "--resume", "--save-every", "3"])
     finally:
         torch.use_deterministic_algorithms(False)
         shutil.rmtree(ckpt_root, ignore_errors=True)
@@ -2059,16 +2077,21 @@ def check_supervisor(torch, device, ckpt_root):
             f"late failure: {runs['late']['supervisor_log']}")
     exp = tree_flatten_with_path(runs["unbroken"]["state"])[0]
     require(exp[0][1].device.type == device.type, f"the state is not on {device}")
-    for name in ("early", "late"):
+    require([r["step"] for r in runs["resumed"]["log"]] == [3, 4, 5], f"resumed steps {runs['resumed']['log']}")
+    for name in ("early", "late", "resumed"):
         got = tree_flatten_with_path(runs[name]["state"])[0]
         require([p for p, _ in got] == [p for p, _ in exp], f"{name}: the state's structure differs")
         for (path, a), (_, b) in zip(got, exp):
-            same = torch.equal(a, b) if isinstance(b, torch.Tensor) else a == b
+            same = torch.equal(a, b) and a.device == b.device if isinstance(b, torch.Tensor) else a == b
             require(same, f"{name}: {path} differs from the unbroken run")
-        require(runs[name]["losses"][-6:] == runs["unbroken"]["losses"], f"{name}: losses differ")
+        n = len(runs[name]["losses"])
+        require(runs[name]["losses"][-min(n, 6):] == runs["unbroken"]["losses"][-min(n, 6):], f"{name}: losses differ")
     log(f"phase 12 supervisor: restart from the initial state (failure at step 2, no save) and from the checkpoint "
         f"of step 4 (failure at step 4, saves every 2) each equal to the unbroken run bit for bit ({len(exp)} "
         f"leaves: parameters, moments, dedup index); losses {[round(v, 4) for v in runs['unbroken']['losses']]}")
+    log(f"phase 13c restore with a plan: --resume from the checkpoint of step 3 through restore(shardings=plan) onto "
+        f"{device} (the driver's plan over best_fit_mesh of its one device) equals the unbroken run bit for bit "
+        f"({len(exp)} leaves; losses of steps 3-5 {[round(v, 4) for v in runs['resumed']['losses']]})")
 
 
 def check_supervisor_on_card(ckpt_root):
@@ -2081,6 +2104,110 @@ def check_supervisor_on_card(ckpt_root):
     res = subprocess.run([sys.executable, "-c", code], env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"),
                          timeout=900)
     require(res.returncode == 0, f"the supervisor check on the card failed (exit {res.returncode})")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the LM stack's multi-device layer
+# ---------------------------------------------------------------------------
+
+
+def check_plan(out_dir):
+    """13a: `python -m repro_torch.launch.dryrun --all` in-process: every
+    (arch x shape) cell on both production meshes, on the meta device (a CPU
+    computation). Returns its wall seconds."""
+    from repro_torch.configs.base import ARCH_IDS, get_config
+    from repro_torch.configs.shapes import shapes_for
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    records = dryrun.run(["--all", "--force", "--out", str(out_dir)])
+    wall = time.perf_counter() - t0
+    cells = 2 * sum(len(shapes_for(get_config(a))) for a in ARCH_IDS)
+    failed = [f"{r['arch']}__{r['shape']}__{r['mesh']}: {r['error']}" for r in records if r["status"] != "ok"]
+    require(not failed and len(records) == cells, f"plan check: {len(records)} of {cells} cells, failures {failed}")
+    train = {(r["arch"], r["mesh"]): r["per_device_bytes"] for r in records if r["shape"] == "train_4k"}
+    log(f"phase 13a plan check: python -m repro_torch.launch.dryrun --all, {len(records)} cells, 0 failures, "
+        f"{wall:.2f} s wall (a CPU computation on the meta device; no card work); train_4k per-device bytes of "
+        f"parameters + gradients + AdamW moments, 16x16 / 2x16x16: " + "; ".join(
+            f"{a} {sum(train[a, '16x16'][k] for k in ('params', 'grads', 'moments'))} / "
+            f"{sum(train[a, '2x16x16'][k] for k in ('params', 'grads', 'moments'))}" for a in ARCH_IDS))
+    return wall
+
+
+def bf16_ulps(torch, got, exp) -> int:
+    """The largest distance in bf16 units in the last place between two bf16 tensors."""
+    def ordered(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -32768 - i, i)
+
+    return int((ordered(got) - ordered(exp)).abs().max()) if got.numel() else 0
+
+
+def check_compression(torch, device, seed, *, arch, ranks, out):
+    """13b: `compressed_tree_psum` over `ranks` gradient trees of `arch` at
+    full width (bf16, from a generator seeded `seed` on the card), every rank
+    on this one card, run one after another. A warm-up call, then one call
+    timed with CUDA events and held against the same function on the CPU on
+    a sample of leaves (the largest among them), then one call profiled;
+    64 calls on a constant fp32 gradient must average to it (atol 1e-3)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.dist.compression import compressed_tree_psum, init_error_state
+    from repro_torch.models import model_zoo as zoo
+
+    shapes = {n: tuple(p.shape) for n, p in zoo.init_params(get_config(arch), device="meta").named_parameters()}
+    n_params = sum(math.prod(s) for s in shapes.values())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    trees = [{n: torch.randn(s, generator=gen, device=device, dtype=torch.bfloat16).mul_(1e-2)
+              for n, s in shapes.items()} for _ in range(ranks)]
+    _, errs = compressed_tree_psum(trees, [init_error_state(t) for t in trees])  # the residuals are no longer 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    mean, new_errs = compressed_tree_psum(trees, errs)
+    end.record()
+    torch.cuda.synchronize()
+    out["ms"] = start.elapsed_time(end)
+    by_size = sorted(shapes, key=lambda n: math.prod(shapes[n]))
+    sample = [by_size[-1], by_size[len(by_size) // 2], by_size[0]]
+    t0 = time.perf_counter()
+    host = [{n: t[n].cpu() for n in sample} for t in trees]
+    cpu_mean, cpu_errs = compressed_tree_psum(host, [{n: e[n].cpu() for n in sample} for e in errs])
+    worst = 0
+    for n in sample:
+        got = [mean[n].cpu()] + [e[n].cpu() for e in new_errs]
+        exp = [cpu_mean[n]] + [e[n] for e in cpu_errs]
+        worst = max(worst, max(bf16_ulps(torch, g, e) for g, e in zip(got, exp)))
+        require(all(torch.equal(g, e) for g, e in zip(got, exp)),
+                f"compression of {n}: the card differs from the CPU by {worst} bf16 ulps")
+    out["cpu_check_s"] = time.perf_counter() - t0
+    del errs, mean, host, cpu_mean, cpu_errs
+    metrics = {}
+    profile(torch, f"one compressed_tree_psum of {ranks} ranks x {n_params} bf16 parameters",
+            lambda: compressed_tree_psum(trees, new_errs), top=5, phase="13b", out=metrics)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del trees, new_errs
+    torch.cuda.empty_cache()
+
+    g = torch.tensor([0.001, -1.0, 0.5, 0.3333], device=device)
+    trees = [{"g": g.clone()} for _ in range(ranks)]
+    errs = [init_error_state(t) for t in trees]
+    acc = torch.zeros_like(g)
+    for _ in range(64):
+        m, errs = compressed_tree_psum(trees, errs)
+        acc += m["g"]
+    conv = (acc / 64 - g).abs().max().item()
+    require(conv <= 1e-3, f"64 compressed means of a constant gradient miss it by {conv}")
+    bound_ms = n_params * (ranks * 6 + 2) / HBM_BYTES_PER_S * 1e3
+    out.update(n_params=n_params, bound_ms=bound_ms, idle_share=metrics["idle_share"], busy_ms=metrics["busy_ms"],
+               sample=sample, convergence_err=conv)
+    log(f"phase 13b compression: {ranks} ranks of {arch} ({n_params} bf16 parameters, {len(shapes)} leaves each) on "
+        f"this one card, one after another; one call {out['ms']:.2f} ms by CUDA events, byte bound "
+        f"{bound_ms:.2f} ms ({ranks * 6 + 2} bytes a parameter over 3.35 TB/s); profiled call idle share "
+        f"{metrics['idle_share']:.4f}, device busy {metrics['busy_ms']:.2f} ms; peak memory {out['peak_gib']:.2f} "
+        f"GiB; card vs CPU on {sample}: bit for bit (max {worst} bf16 ulps, {out['cpu_check_s']:.2f} s); 64 calls on "
+        f"a constant fp32 gradient average to it within {conv:.3e}")
 
 
 def log_rows(rows):
@@ -2268,7 +2395,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_train_families(torch, device, args.seed)
     check_supervisor_on_card(ROOT / "build" / "train_ckpt")
-    log(f"phase 12 checks: {time.perf_counter() - t0:.2f} s")
+    log(f"phase 12 checks (with 13c): {time.perf_counter() - t0:.2f} s")
+
+    # Phase 13: the multi-device layer: the plan check of every dry-run cell
+    # (meta device), and int8 gradient compression of 4 ranks of StableLM's
+    # gradients at full width, all on this card (phase 12's state freed).
+    t13 = time.perf_counter()
+    peak_1_12 = max(peak_1_11, tr_peak * 2**30, torch.cuda.max_memory_allocated())
+    plan_s = check_plan(ROOT / "build" / "dryrun")
+    comp = {}
+    check_compression(torch, device, args.seed, arch="stablelm-1.6b", ranks=4, out=comp)
+    t13 = time.perf_counter() - t13
 
     log(f"rates ({card}): insert {rates['insert_M_elem_per_s']:.3f} M elem/s, "
         f"lookup {rates['lookup_M_q_per_s']:.3f} M q/s, count {rates['count_M_q_per_s']:.4f} M q/s, "
@@ -2326,7 +2463,11 @@ def main() -> int:
         f"{(tr_out['peak_mem_bytes'] or 0) / 2**30:.2f} GiB); dups per step {[r['dups'] for r in tr_out['log']]}; "
         f"losses {[round(r['loss'], 4) for r in tr_out['log']]}; main() {tr_out['main_s']:.2f} s")
     log(f"phase 12 launches: {launches12}")
-    log(f"peak device memory {max(peak_1_11, tr_peak * 2**30, torch.cuda.max_memory_allocated()) / 2**30:.2f} GiB; "
+    log(f"phase 13 rates ({card}): plan check of every dry-run cell {plan_s:.2f} s (CPU); compression of 4 ranks x "
+        f"{comp['n_params']} bf16 parameters {comp['ms']:.2f} ms a call, {comp['ms'] / comp['bound_ms']:.2f}x its "
+        f"{comp['bound_ms']:.2f} ms byte bound, idle share {comp['idle_share']:.4f}, peak memory "
+        f"{comp['peak_gib']:.2f} GiB; phase 13 {t13:.2f} s (13c ran in phase 12's child process)")
+    log(f"peak device memory {max(peak_1_12, torch.cuda.max_memory_allocated()) / 2**30:.2f} GiB; "
         f"total {time.perf_counter() - t_all:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))

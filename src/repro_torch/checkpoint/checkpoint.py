@@ -25,7 +25,7 @@ import re
 import shutil
 import threading
 import time
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, ClassVar, List, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +44,7 @@ class TensorSpec:
     shape: Tuple[int, ...]
     dtype: torch.dtype
     device: torch.device
+    tree_leaf: ClassVar[bool] = True  # a leaf of a tree, not a node
 
     @classmethod
     def of(cls, leaf):
@@ -65,7 +66,7 @@ def _node(x):
         return [f".{f}" for f in x._fields], list(x), lambda vals: type(x)(*vals)
     if isinstance(x, (list, tuple)):
         return [f"[{i}]" for i in range(len(x))], list(x), lambda vals: type(x)(vals)
-    if dataclasses.is_dataclass(x) and not isinstance(x, (type, TensorSpec)):
+    if dataclasses.is_dataclass(x) and not isinstance(x, type) and not getattr(x, "tree_leaf", False):
         names = [f.name for f in dataclasses.fields(x)]
         return ([f".{n}" for n in names], [getattr(x, n) for n in names],
                 lambda vals: dataclasses.replace(x, **dict(zip(names, vals))))
@@ -186,14 +187,25 @@ class CheckpointManager:
         `TensorSpec` leaf of the target gives the shape to check and the
         device to put the stored tensor on (in its stored dtype); a Python
         scalar leaf comes back as a scalar of its type; any other leaf as
-        numpy. `shardings` has no meaning on one device: only None."""
-        if shardings is not None:
-            raise ValueError("shardings: the port restores onto one device; pass None")
+        numpy.
+
+        shardings: optional tree of `dist.sharding.Placement`s, matched to
+        the target's leaves by key path; a leaf it names goes to its
+        placement's device instead, and any other as without it. A placement
+        must put its leaf whole on one device (a one-device mesh; every axis
+        its spec names of size 1): a plan that would split a leaf raises
+        ValueError naming the leaf."""
         d = os.path.join(self.directory, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         by_path = {e["path"]: e for e in manifest["leaves"]}
         flat, unflatten = tree_flatten_with_path(target_tree)
+        placed = {}
+        if shardings is not None:
+            placed = {path: pl.device(path) for path, pl in tree_flatten_with_path(shardings)[0]}
+            unknown = sorted(set(placed) - {path for path, _ in flat})
+            if unknown:
+                raise KeyError(f"shardings name leaves the target lacks: {unknown[:3]}")
         leaves = []
         for path_str, spec in flat:
             entry = by_path.get(path_str)
@@ -203,16 +215,16 @@ class CheckpointManager:
             shape = tuple(spec.shape) if hasattr(spec, "shape") else np.shape(spec)
             if tuple(arr.shape) != shape:
                 raise ValueError(f"{path_str}: shape {arr.shape} != {shape}")
-            leaves.append(_from_host(arr, entry["dtype"], spec))
+            leaves.append(_from_host(arr, entry["dtype"], spec, placed.get(path_str)))
         return unflatten(leaves)
 
 
-def _from_host(arr: np.ndarray, dtype_name: str, spec):
+def _from_host(arr: np.ndarray, dtype_name: str, spec, device=None):
     if isinstance(spec, (torch.Tensor, TensorSpec)):
         t = torch.from_numpy(arr)
         if dtype_name in _BY_NAME:
             t = t.view(_BY_NAME[dtype_name])
-        return t.to(spec.device)
+        return t.to(spec.device if device is None else device)
     if isinstance(spec, (bool, int, float)):
         return type(spec)(arr.item())
     return arr

@@ -10,7 +10,10 @@ LSM of document hashes on the device (`dedup_batch`: the dictionary's
 lookup, batch sort and cascade merge), and runs one train step (the loss's
 gradient by autograd, every unit rematerialised, then AdamW). The parameters,
 the moments and the dedup index live on --device and are updated in place.
-The loop runs under `TrainSupervisor`: every --save-every steps the state
+The state is laid out by the reference's sharding plan over
+`best_fit_mesh` of the driver's one device (`dist.sharding`: every leaf
+whole on that device), and `--resume` restores through that plan. The loop
+runs under `TrainSupervisor`: every --save-every steps the state
 {"params", "opt", "pipe"} is checkpointed (async), and a failing step
 (--fail-at injects one) restarts from the newest checkpoint, or from the
 state the run started with. `--resume` restores the whole state, the dedup
@@ -32,15 +35,21 @@ import torch
 from repro_torch.checkpoint.checkpoint import CheckpointManager, TensorSpec, tree_map
 from repro_torch.configs.base import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.data.pipeline import PipelineConfig, dedup_batch, make_batch, pipeline_init
+from repro_torch.dist import sharding as shd
 from repro_torch.dist.fault_tolerance import StragglerMonitor, TrainSupervisor
+from repro_torch.launch.mesh import Mesh, make_mesh
 from repro_torch.models import model_zoo as zoo
-from repro_torch.optim.adam import AdamConfig, adam_init
+from repro_torch.optim.adam import AdamConfig, AdamState, adam_init
 from repro_torch.train.steps import make_train_step
 
 
-def best_fit_mesh() -> dict:
-    """The data x model layout: one device (multi-device layouts are not ported)."""
-    return {"data": 1, "model": 1}
+def best_fit_mesh(devices) -> Mesh:
+    """The data x model mesh over `devices`: model is the largest of 16, 8,
+    4, 2, 1 that divides their count, data the rest (the reference's rule
+    over the devices its runtime exposes). The driver is given one device."""
+    n = len(devices)
+    model = next(m for m in (16, 8, 4, 2, 1) if n % m == 0)
+    return make_mesh((n // model, model), ("data", "model"), devices)
 
 
 def parse_args(argv=None):
@@ -87,22 +96,31 @@ def train(args, cfg, params) -> dict:
     device = params.embed.device
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    mesh = best_fit_mesh()
-    print(f"[train] arch={cfg.name} mesh={mesh} devices=1 ({device})")
+    mesh = best_fit_mesh([device])
+    print(f"[train] arch={cfg.name} mesh={mesh.shape} devices={mesh.size} ({device})")
     ocfg = AdamConfig(lr=args.lr, total_steps=args.steps, warmup_steps=max(10, args.steps // 20))
     n_params = sum(p.numel() for p in params.parameters())
     print(f"[train] params: {n_params/1e6:.1f}M")
+    opt_state = adam_init(ocfg, params)
+    params_sh = shd.params_shardings(cfg, params, mesh)
+    opt_sh = AdamState(m=shd.params_shardings(cfg, opt_state.m, mesh),
+                       v=shd.params_shardings(cfg, opt_state.v, mesh), step=shd.replicated(mesh))
+    # One device: the plan places every leaf where it already is.
+    _load(params, shd.place(dict(params.named_parameters()), params_sh))
+    opt_state = shd.place(opt_state, opt_sh)
     train_step = make_train_step(cfg, ocfg)
     pcfg = PipelineConfig(vocab_size=cfg.vocab_size, seq_len=args.seq, batch_per_shard=args.batch,
                           dedup=not args.no_dedup, device=device)
-    state = {"params": dict(params.named_parameters()), "opt": adam_init(ocfg, params), "pipe": pipeline_init(pcfg)}
+    state = {"params": dict(params.named_parameters()), "opt": opt_state, "pipe": pipeline_init(pcfg)}
+    batch_sh = shd.batch_shardings(make_batch(pcfg, 0, 0), mesh)
 
     ckpt = CheckpointManager(args.ckpt_dir, keep=3, async_save=True)
     sup = TrainSupervisor(ckpt, save_every=args.save_every, monitor=StragglerMonitor())
     start_step = 0
     if args.resume and ckpt.latest_step() is not None:
         start_step = ckpt.latest_step()
-        state = ckpt.restore(start_step, tree_map(TensorSpec.of, state))
+        state = ckpt.restore(start_step, tree_map(TensorSpec.of, state),
+                             shardings={"params": params_sh, "opt": opt_sh})
         print(f"[train] resumed from step {start_step}")
 
     losses, log = [], []
@@ -114,7 +132,7 @@ def train(args, cfg, params) -> dict:
             fail_at.clear()
             raise RuntimeError("injected failure (FT demo)")
         t0 = time.perf_counter()
-        batch = make_batch(pcfg, 0, step)
+        batch = shd.place(make_batch(pcfg, 0, step), batch_sh)
         pipe, batch, n_dup = dedup_batch(pcfg, state["pipe"], batch, 0, step)
         _load(params, state["params"])
         _, opt, metrics = train_step(params, state["opt"], batch)

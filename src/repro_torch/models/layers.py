@@ -228,7 +228,8 @@ def attention(p: Attention, x, positions, *, num_heads, num_kv_heads, head_dim, 
     q = rope(q, positions, theta)
     k = rope(k, positions, theta)
 
-    if causal and s > BLOCKED_ATTN_THRESHOLD and s % Q_BLOCK == 0:
+    # On the meta device (shapes only) the blocks would cost time and bound nothing.
+    if causal and s > BLOCKED_ATTN_THRESHOLD and s % Q_BLOCK == 0 and not x.is_meta:
         # Q-blocked attention: bounds the score buffer to [B, H, Q_BLOCK, S].
         blocks = []
         for qi in range(s // Q_BLOCK):

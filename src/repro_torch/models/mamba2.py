@@ -88,13 +88,16 @@ def _ssd_chunked(x, dt, A, B, C, chunk):
     # Inter-chunk recurrence state_z = decay_z * state_{z-1} + states_z, kept
     # exclusive: prev[z] is the state entering chunk z.
     chunk_decay = torch.exp(cum[:, :, -1, :])                 # [b,z,h]
-    carry = torch.zeros_like(states[:, 0])
-    prev = []
-    for zi in range(z):
-        prev.append(carry)
-        carry = carry * chunk_decay[:, zi, :, None, None].to(carry.dtype) + states[:, zi]
-    final_state = carry                                       # [b,h,p,n]
-    prev = torch.stack(prev, dim=1)
+    if x.is_meta:  # shapes only: the recurrence keeps the states' shape and dtype
+        prev, final_state = torch.empty_like(states), torch.empty_like(states[:, 0])
+    else:
+        carry = torch.zeros_like(states[:, 0])
+        prev = []
+        for zi in range(z):
+            prev.append(carry)
+            carry = carry * chunk_decay[:, zi, :, None, None].to(carry.dtype) + states[:, zi]
+        final_state = carry                                   # [b,h,p,n]
+        prev = torch.stack(prev, dim=1)
 
     y_off = _einsum("bzin,bzhpn,bzih->bzihp", Cc, prev, torch.exp(cum).to(x.dtype))
     y = (y_diag + y_off).reshape(b, s, h, p)

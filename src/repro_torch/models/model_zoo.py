@@ -14,12 +14,14 @@ Batch dicts ("extra" inputs are the modality stubs):
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
 
 from repro_torch.api.dictionary import resolve_device
+from repro_torch.checkpoint.checkpoint import TensorSpec, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import InputShape
 from repro_torch.models import layers as L
@@ -157,6 +159,60 @@ def apply_decode(cfg: ModelConfig, params: Model, token, caches, cache_len: int,
         x, nc = T.group_apply_decode(cfg, group, descs, x, c, int(cache_len))
         new_caches.append(nc)
     return _head(cfg, params, x)[:, 0], new_caches
+
+
+# ---------------------------------------------------------------------------
+# input specs (TensorSpec stand-ins on the meta device; no allocation)
+# ---------------------------------------------------------------------------
+
+
+def _sds(shape, dtype) -> TensorSpec:
+    return TensorSpec(tuple(shape), dtype, torch.device("meta"))
+
+
+def _prefill_batch(cfg: ModelConfig, b: int, s: int) -> dict:
+    st = s - cfg.num_patches if cfg.has_vision_stub else s
+    batch = {"tokens": _sds((b, st), torch.int32)}
+    if cfg.has_vision_stub:
+        batch["patch_embeds"] = _sds((b, cfg.num_patches, cfg.d_model), L.DTYPE)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = _sds((b, AUDIO_ENC_LEN, cfg.d_model), L.DTYPE)
+    return batch
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
+    """Abstract inputs for one (arch x shape) dry-run cell, in the
+    reference's layout: {"batch"} for train and prefill, {"token", "caches",
+    "cache_len"} for decode."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        batch = _prefill_batch(cfg, b, s)
+        batch["labels"] = _sds(batch["tokens"].shape, torch.int32)
+        return {"batch": batch}
+    if shape.kind == "prefill":
+        return {"batch": _prefill_batch(cfg, b, s)}
+    if shape.kind == "decode":
+        return {"token": _sds((b, 1), torch.int32), "caches": cache_specs(cfg, b, s),
+                "cache_len": _sds((), torch.int32)}
+    raise ValueError(shape.kind)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, s_max: int):
+    """Abstract KV/state caches for a decode step with context s_max, in the
+    port's layout (one list of per-unit dicts per group).
+
+    They are what a "meta"-device `apply_prefill` of a "meta"-device
+    `init_params` returns, so they cannot drift from what prefill returns."""
+    return tree_map(lambda spec: spec, _cache_specs(cfg, batch, s_max))  # a fresh tree over the cached specs
+
+
+@functools.lru_cache(maxsize=64)
+def _cache_specs(cfg: ModelConfig, batch: int, s_max: int):
+    inputs = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+              for k, v in _prefill_batch(cfg, batch, s_max).items()}
+    with torch.no_grad():
+        _, caches = apply_prefill(cfg, init_params(cfg, device="meta"), inputs)
+    return tree_map(TensorSpec.of, caches)
 
 
 # ---------------------------------------------------------------------------

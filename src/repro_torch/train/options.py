@@ -2,10 +2,13 @@
 repro.train.options). Every option preserves semantics and is off by default.
 
 On one device the sharding knobs (`sharded_loss`, `zero3_gather`,
-`serve_sharding`, `attn_seq_shard`) change nothing, as the reference's
-`hint` / `regather_params_tp` reduce to the identity without a mesh.
-`remat_policy` sets how the training forward rematerialises each unit
-(models/transformer.py); `scan_unroll` concerns the dry run only.
+`serve_sharding`, `attn_seq_shard`) change nothing: they act through the
+reference's in-graph `hint` / `regather_params_tp`, which the port has
+(dist/sharding.py) as the identity, as the reference's are without an
+ambient mesh; the dry run records them. `remat_policy` sets how the
+training forward rematerialises each unit (models/transformer.py);
+`scan_unroll` drove the reference's compile-based cost accounting, which
+the port's dry run (a plan check) does not do.
 """
 
 from __future__ import annotations

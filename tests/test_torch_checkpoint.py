@@ -8,8 +8,10 @@ run started with by value; the reference's driver donates its state to the
 jitted step and keeps no copy of it, so a failure before the first
 checkpoint cannot recover there (pinned below)."""
 
+import functools
 import json
 import os
+import re
 import shutil
 
 import jax
@@ -26,7 +28,9 @@ from repro_torch.checkpoint.checkpoint import CheckpointManager, TensorSpec, tre
 from repro_torch.core import semantics as sem
 from repro_torch.core.lsm import LSMConfig, lsm_init, lsm_update
 from repro_torch.dist.fault_tolerance import StragglerMonitor, TrainSupervisor
+from repro_torch.dist.sharding import Placement, _model_spec, replicated
 from repro_torch.launch import train as port_train
+from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
 from repro_torch.optim.adam import AdamState
 
 
@@ -88,8 +92,28 @@ class TestCheckpoint:
                        spec_of(_tree()))
         with pytest.raises((ValueError, KeyError)):
             cm.restore(1, bad)
-        with pytest.raises(ValueError, match="shardings"):
-            CheckpointManager(str(tmp_path)).restore(1, spec_of(_tree()), shardings={})
+        four = make_debug_mesh(1, 4, devices=["cpu"] * 4)
+        with pytest.raises(ValueError, match=r"\['w'\]: the plan splits it over \['model'\]"):
+            cm.restore(1, spec_of(_tree()), shardings={"w": Placement(four, (None, "model"))})
+
+    def test_restore_with_a_one_device_plan_equals_restore_without(self, tmp_path):
+        """The driver's plan (params, moments) over its one device places
+        every leaf there; leaves the plan does not name (the dedup index)
+        restore as without one. A plan over several devices, an abstract
+        mesh or a leaf the target lacks raises."""
+        cm = CheckpointManager(str(tmp_path))
+        tree = _tree()
+        cm.save(2, tree)
+        one = port_train.best_fit_mesh(["cpu"])
+        plan = {"w": Placement(one, _model_spec((8, 16), one)), "nested": {"s": replicated(one)}}
+        assert_trees_equal(cm.restore(2, spec_of(tree), shardings=plan), cm.restore(2, spec_of(tree)))
+        assert_trees_equal(cm.restore(2, spec_of(tree), shardings=plan), tree)
+        for bad, match in ((make_debug_mesh(2, 1, devices=["cpu"] * 2), "2 devices"),
+                           (make_production_mesh(), "no devices")):
+            with pytest.raises(ValueError, match=match):
+                cm.restore(2, spec_of(tree), shardings={"w": replicated(bad)})
+        with pytest.raises(KeyError, match="lacks"):
+            cm.restore(2, spec_of(tree), shardings={"v": replicated(one)})
 
     def test_host_scalars_and_dataclass_leaves(self, tmp_path):
         """LSMState-like leaves: Python ints and bools come back as such."""
@@ -270,3 +294,55 @@ def test_fail_before_first_save_recovers_where_the_reference_raises(tmp_path, mo
     assert "RESTART from initial state (no checkpoint)" in restarted["supervisor_log"]
     assert [r["step"] for r in restarted["log"]] == [0, 1, 0, 1, 2, 3, 4, 5]
     assert_same_end(restarted, unbroken)
+
+
+STEP_LINE = re.compile(r"step\s+(\d+) loss \S+ gnorm \S+ lr \S+ dups (\d+)")
+
+
+def reference_dups(capsys, argv):
+    ref_train.main(argv)
+    return [(int(m.group(1)), int(m.group(2))) for m in map(STEP_LINE.search, capsys.readouterr().out.splitlines())
+            if m]
+
+
+def test_resume_keeps_the_dedup_index_where_the_reference_starts_it_empty(tmp_path, monkeypatch, capsys):
+    """Kept on purpose. Both drivers on `--smoke --steps 6 --batch 8 --seq 1
+    --save-every 3`, then `--resume` after step_00000006 is removed. The
+    reference restores only {"params", "opt"} and starts its dedup index
+    empty (repro/launch/train.py, `pipe_state = pipeline_init(pcfg)`), so
+    its resumed steps count other duplicates than its unbroken run; the port
+    restores {"params", "opt", "pipe"} and its resumed counts equal its
+    unbroken run's. The unbroken runs agree step for step.
+
+    The reference's driver runs on one device; its dedup runs op by op
+    (jax.disable_jit), since jitted, its cascade compiles a 16-branch
+    lax.switch at every step; both of its runs share one compiled train
+    step. The duplicate counts do not depend on the train step."""
+    argv = ["--smoke", "--steps", "6", "--batch", "8", "--seq", "1", "--log-every", "1"]
+
+    def op_by_op(fn):
+        def run(*args):
+            with jax.disable_jit():
+                return fn(*args)
+        return run
+
+    monkeypatch.setattr(ref_train, "best_fit_mesh", one_device_mesh)
+    monkeypatch.setattr(ref_train, "dedup_batch", op_by_op(ref_train.dedup_batch))
+    monkeypatch.setattr(ref_train, "make_train_step", functools.lru_cache(ref_train.make_train_step))
+    ref_dir = str(tmp_path / "ref")
+    ref_unbroken = reference_dups(capsys, argv + ["--save-every", "3", "--ckpt-dir", ref_dir])
+    shutil.rmtree(tmp_path / "ref" / "step_00000006")
+    ref_resumed = reference_dups(capsys, argv + ["--resume", "--ckpt-dir", ref_dir])
+
+    port_dir = str(tmp_path / "port")
+    port_unbroken = port_train.run(argv + ["--save-every", "3", "--device", "cpu", "--ckpt-dir", port_dir])["log"]
+    shutil.rmtree(tmp_path / "port" / "step_00000006")
+    port_resumed = port_train.run(argv + ["--resume", "--device", "cpu", "--ckpt-dir", port_dir])["log"]
+    port_unbroken = [(r["step"], r["dups"]) for r in port_unbroken]
+    port_resumed = [(r["step"], r["dups"]) for r in port_resumed]
+
+    assert port_unbroken == ref_unbroken and [s for s, _ in ref_unbroken] == list(range(6))
+    assert [s for s, _ in ref_resumed] == [s for s, _ in port_resumed] == [3, 4, 5]
+    assert port_resumed == port_unbroken[3:]
+    assert ref_resumed != ref_unbroken[3:]
+    assert sum(d for _, d in ref_resumed) < sum(d for _, d in ref_unbroken[3:])

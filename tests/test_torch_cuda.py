@@ -564,3 +564,85 @@ def test_cuda_supervisor_restarts_equal_unbroken_run(cuda, deterministic, tmp_pa
         for (path, a), (_, b) in zip(got, exp):
             assert (torch.equal(a, b) and a.device == b.device) if isinstance(b, torch.Tensor) else a == b, (name, path)
         assert runs[name]["losses"][-6:] == runs["unbroken"]["losses"], name
+
+
+@pytest.mark.cuda
+def test_cuda_compression_matches_cpu(cuda):
+    """int8 compression with error feedback over 1 and 4 ranks on the card
+    against the same calls on the CPU, bit for bit: the mean and every
+    residual over three calls (fp32, bf16 with a zero leaf, int32 with
+    negatives)."""
+    for n in (1, 4):
+        check_compression(cuda, n)
+
+
+def check_compression(cuda, n):
+    from repro_torch.checkpoint.checkpoint import tree_flatten_with_path, tree_map
+    from repro_torch.dist.compression import compressed_tree_psum, init_error_state
+
+    g = torch.Generator().manual_seed(n)
+    steps = [[{"w": torch.randn(64, 33, generator=g), "b": {"x": torch.randn(1000, generator=g).bfloat16(),
+                                                           "zero": torch.zeros(4, dtype=torch.bfloat16)},
+               "c": torch.randint(-50, 50, (7,), generator=g, dtype=torch.int32)} for _ in range(n)]
+             for _ in range(3)]
+    results = {}
+    for where in ("cpu", cuda):
+        errs = [init_error_state(tree_map(lambda x: x.to(where), t)) for t in steps[0]]
+        for trees in steps:
+            mean, errs = compressed_tree_psum([tree_map(lambda x: x.to(where), t) for t in trees], errs)
+        results[str(where)] = [mean] + errs
+    for got, exp in zip(results[str(cuda)], results["cpu"]):
+        for (path, a), (_, b) in zip(tree_flatten_with_path(got)[0], tree_flatten_with_path(exp)[0]):
+            assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a.cpu(), b), (n, path)
+
+
+@pytest.mark.cuda
+def test_cuda_restore_and_resume_through_a_plan(cuda, deterministic, tmp_path):
+    """A one-device plan over the card restores every leaf there, equal to a
+    restore without a plan, and a plan that splits a leaf raises; the
+    training driver's --resume on the card restores through its plan and
+    ends bit for bit equal to an unbroken run."""
+    check_restore_with_a_plan(cuda, tmp_path / "restore")
+    check_resume_through_the_plan(tmp_path / "resume")
+
+
+def check_restore_with_a_plan(cuda, tmp_path):
+    from repro_torch.checkpoint.checkpoint import CheckpointManager, TensorSpec, tree_map
+    from repro_torch.dist.sharding import Placement, _model_spec, replicated
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import best_fit_mesh
+
+    tree = {"w": torch.randn(8, 16).bfloat16(), "n": {"b": torch.arange(16, dtype=torch.int32), "r": 3}}
+    cm = CheckpointManager(str(tmp_path))
+    cm.save(1, tree)
+    mesh = best_fit_mesh([torch.device("cuda", 0)])
+    plan = {"w": Placement(mesh, _model_spec((8, 16), mesh)), "n": {"b": replicated(mesh)}}
+    got = cm.restore(1, tree_map(TensorSpec.of, tree), shardings=plan)
+    exp = cm.restore(1, tree_map(lambda x: TensorSpec(tuple(x.shape), x.dtype, cuda) if isinstance(x, torch.Tensor)
+                                 else x, tree))
+    assert got["w"].device == got["n"]["b"].device == torch.device("cuda", 0) and got["n"]["r"] == 3
+    assert torch.equal(got["w"], exp["w"]) and torch.equal(got["n"]["b"], exp["n"]["b"])
+    assert torch.equal(got["w"].cpu(), tree["w"])
+    split = make_debug_mesh(1, 2, devices=[cuda, cuda])
+    with pytest.raises(ValueError, match="splits"):
+        cm.restore(1, tree_map(TensorSpec.of, tree), shardings={"w": Placement(split, (None, "model"))})
+
+
+def check_resume_through_the_plan(tmp_path):
+    import shutil
+
+    from repro_torch.checkpoint.checkpoint import tree_flatten_with_path
+    from repro_torch.launch import train
+
+    argv = ["--smoke", "--steps", "6", "--batch", "8", "--seq", "16", "--log-every", "1"]
+    unbroken = train.run(argv + ["--ckpt-dir", str(tmp_path / "a")])
+    train.run(argv + ["--ckpt-dir", str(tmp_path / "b"), "--save-every", "3"])
+    shutil.rmtree(tmp_path / "b" / "step_00000006")
+    resumed = train.run(argv + ["--ckpt-dir", str(tmp_path / "b"), "--save-every", "3", "--resume"])
+    assert [r["step"] for r in resumed["log"]] == [3, 4, 5]
+    exp = tree_flatten_with_path(unbroken["state"])[0]
+    got = tree_flatten_with_path(resumed["state"])[0]
+    assert [p for p, _ in got] == [p for p, _ in exp]
+    for (path, a), (_, b) in zip(got, exp):
+        assert (torch.equal(a, b) and a.device == b.device) if isinstance(b, torch.Tensor) else a == b, path
+    assert resumed["losses"] == unbroken["losses"][3:]

@@ -33,7 +33,8 @@ def test_import_leaves_jax_unloaded():
     code = (
         "import sys, repro_torch, repro_torch.api, repro_torch.convert, repro_torch.kernels.ops,"
         " repro_torch.models.model_zoo, repro_torch.launch.serve, repro_torch.launch.train,"
-        " repro_torch.optim.adam, repro_torch.checkpoint.checkpoint;"
+        " repro_torch.optim.adam, repro_torch.checkpoint.checkpoint, repro_torch.dist.sharding,"
+        " repro_torch.dist.compression, repro_torch.launch.dryrun;"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'));"
         "print(bad); sys.exit(1 if bad else 0)"
     )
