@@ -112,7 +112,21 @@ Phases, one line each with its seconds:
      memory, and 64 calls on a constant fp32 gradient averaging to it; (c)
      in phase 12's child process, the training driver's --resume through
      restore(shardings=plan) onto the card, bit for bit equal to an
-     unbroken run.
+     unbroken run;
+ 14. the four examples as a user runs them, each in this process with its
+     standard output captured, at the reference examples' own sizes:
+     `examples/torch_quickstart.py`, `torch_streaming_updates.py`,
+     `torch_dictionary_serving.py` (the paged decode, `--server`, and
+     `--sharded --shards 4 --device cuda:0`), each on the card and then with
+     `--device cpu`, every line on the card equal to its line on the CPU
+     (but the repr's device field and the streaming rate line);
+     `torch_train_lm.py` as written (the smoke config, 200 steps) and
+     `--no-smoke --arch stablelm-1.6b --batch 8 --seq 2048 --steps 12
+     --log-every 1` (full width), both passing the example's own assert that
+     the loss fell. The launch counts, set to 0 before each card run, must
+     be positive for the kernels on its path, and for all five over the
+     phase; each run's wall, the full-width step time and peak memory are
+     printed.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 before it. Without a CUDA device, or without the repository's src/ beside
 it, the script exits non-zero and prints no result.
@@ -121,10 +135,16 @@ it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
+import gc
+import io
 import json
 import math
 import os
+import re
+import runpy
+import shutil
 import subprocess
 import sys
 import time
@@ -2052,8 +2072,6 @@ def check_supervisor(torch, device, ckpt_root):
     the first save (restart from the initial state) and one after a save
     (restore from the checkpoint) each end bit for bit equal to an unbroken
     run: parameters, moments, the dedup index with its host fields, losses."""
-    import shutil
-
     from repro_torch.checkpoint.checkpoint import tree_flatten_with_path
     from repro_torch.launch import train
 
@@ -2208,6 +2226,93 @@ def check_compression(torch, device, seed, *, arch, ranks, out):
         f"{metrics['idle_share']:.4f}, device busy {metrics['busy_ms']:.2f} ms; peak memory {out['peak_gib']:.2f} "
         f"GiB; card vs CPU on {sample}: bit for bit (max {worst} bf16 ulps, {out['cpu_check_s']:.2f} s); 64 calls on "
         f"a constant fp32 gradient average to it within {conv:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the four examples on the card
+# ---------------------------------------------------------------------------
+
+RATE = " streamed updates in "
+
+# Each dictionary example: (file, arguments on both devices, arguments on the
+# card, the kernels its path launches).
+STAGED_PATH = ("merge_cascade", "bound", "fused_lookup")
+DICT_EXAMPLES = {
+    "quickstart": ("torch_quickstart.py", [], [], STAGED_PATH + ("merge_path",)),
+    "streaming": ("torch_streaming_updates.py", [], [], ("merge_cascade", "bound")),
+    "serving": ("torch_dictionary_serving.py", [], [], STAGED_PATH),
+    "serving --server": ("torch_dictionary_serving.py", ["--server"], [], STAGED_PATH),
+    "serving --sharded": ("torch_dictionary_serving.py", ["--sharded", "--shards", "4"], ["--device", "cuda:0"],
+                          STAGED_PATH),
+}
+DEDUP_PATH = ("bitonic_sort", "fused_lookup", "merge_cascade")
+
+
+def run_example(name, argv):
+    """`python examples/<name> *argv` in this process: its stdout lines and
+    wall seconds. A failing example raises."""
+    path = str(ROOT / "examples" / name)
+    out, saved = io.StringIO(), sys.argv
+    sys.argv = [path, *argv]
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(path, run_name="__main__")
+    finally:
+        sys.argv = saved
+    return out.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def comparable(lines):
+    """Lines as compared across devices: the repr's `device='...'` field
+    dropped, and of the streaming rate line only the update count."""
+    return [ln.split(RATE)[0] if RATE in ln else re.sub(r"^(Dictionary\(.*), device='[^']*'\)$", r"\1)", ln)
+            for ln in lines]
+
+
+def drive_examples(torch, drive):
+    """Phase 14. Returns {label: {"wall_s", "launches", ...}}; `drive` zeroes
+    the launch counts before a card run and reads them after it."""
+    ckpt = ROOT / "build" / "examples_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    res = {}
+    for label, (name, argv, card_argv, path) in DICT_EXAMPLES.items():
+        (lines, wall), counts = drive(f"14 {label}", lambda: run_example(name, argv + card_argv))
+        for ln in lines:
+            log(f"    {ln}")
+        cpu_lines, cpu_wall = run_example(name, argv + ["--device", "cpu"])
+        require(comparable(lines) == comparable(cpu_lines),
+                f"{label}: the card's lines differ from the CPU's:\n" + "\n".join(lines) + "\n--- cpu\n"
+                + "\n".join(cpu_lines))
+        require(all(counts[k] > 0 for k in path), f"a kernel of {label}'s path did not run: {counts}")
+        log(f"phase 14 {label}: {wall:.2f} s on the card, {cpu_wall:.2f} s with --device cpu; {len(lines)} lines, "
+            f"equal to the CPU's")
+        res[label] = dict(wall_s=wall, cpu_wall_s=cpu_wall, launches=counts)
+        if label == "streaming":
+            res[label]["rate_line"] = next(ln for ln in lines if RATE in ln)
+    runs = {"train_lm": ["--ckpt-dir", str(ckpt / "smoke")],
+            "train_lm full width": ["--no-smoke", "--arch", "stablelm-1.6b", "--batch", "8", "--seq", "2048",
+                                    "--steps", "12", "--log-every", "1", "--ckpt-dir", str(ckpt / "full")]}
+    for label, argv in runs.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        log(f"phase 14 {label}: python examples/torch_train_lm.py {' '.join(argv)}")
+        (lines, wall), counts = drive(f"14 {label}", lambda: run_example("torch_train_lm.py", argv))
+        for ln in lines:
+            log(f"    {ln}")
+        require("[train] loss decreased ✓" in lines, f"{label}: the loss did not decrease")
+        require(all(counts[k] > 0 for k in DEDUP_PATH), f"a kernel of {label}'s dedup did not run: {counts}")
+        steps_ms = [float(ln.rsplit("step_ms ", 1)[1]) for ln in lines if ln.startswith("  step ")]
+        res[label] = dict(wall_s=wall, launches=counts, steps_ms=steps_ms,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        gc_collect(torch)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return res
+
+
+def gc_collect(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def log_rows(rows):
@@ -2407,6 +2512,16 @@ def main() -> int:
     check_compression(torch, device, args.seed, arch="stablelm-1.6b", ranks=4, out=comp)
     t13 = time.perf_counter() - t13
 
+    # Phase 14: the four examples on the card, as a user runs them (phase
+    # 13's state freed first).
+    gc_collect(torch)
+    peak_1_13 = max(peak_1_12, torch.cuda.max_memory_allocated())
+    t14 = time.perf_counter()
+    ex = drive_examples(torch, drive)
+    t14 = time.perf_counter() - t14
+    launches14 = {name: sum(r["launches"][name] for r in ex.values()) for name in kernels}
+    require(all(v > 0 for v in launches14.values()), f"a kernel did not run in phase 14: {launches14}")
+
     log(f"rates ({card}): insert {rates['insert_M_elem_per_s']:.3f} M elem/s, "
         f"lookup {rates['lookup_M_q_per_s']:.3f} M q/s, count {rates['count_M_q_per_s']:.4f} M q/s, "
         f"range {rates['range_M_q_per_s']:.4f} M q/s, cleanup {rates['cleanup_s'] * 1e3:.1f} ms, "
@@ -2467,7 +2582,18 @@ def main() -> int:
         f"{comp['n_params']} bf16 parameters {comp['ms']:.2f} ms a call, {comp['ms'] / comp['bound_ms']:.2f}x its "
         f"{comp['bound_ms']:.2f} ms byte bound, idle share {comp['idle_share']:.4f}, peak memory "
         f"{comp['peak_gib']:.2f} GiB; phase 13 {t13:.2f} s (13c ran in phase 12's child process)")
-    log(f"peak device memory {max(peak_1_12, torch.cuda.max_memory_allocated()) / 2**30:.2f} GiB; "
+    full = ex["train_lm full width"]
+    full_ms = sorted(full["steps_ms"][1:])[len(full["steps_ms"][1:]) // 2]  # median, the first step left out
+    log(f"phase 14 rates ({card}): " + "; ".join(
+        f"{label} {r['wall_s']:.2f} s" + (f" (cpu {r['cpu_wall_s']:.2f} s)" if "cpu_wall_s" in r else "")
+        for label, r in ex.items()) + f"; streaming: {ex['streaming']['rate_line'].strip()}; train_lm full width "
+        f"(stablelm-1.6b, 8 x 2048 tokens, 12 steps): step median {full_ms:.1f} ms (first "
+        f"{full['steps_ms'][0]:.1f}, min {min(full['steps_ms']):.1f}, max {max(full['steps_ms']):.1f}), peak device "
+        f"memory {full['peak_gib']:.2f} GiB; train_lm smoke peak {ex['train_lm']['peak_gib']:.2f} GiB; phase 14 "
+        f"{t14:.2f} s")
+    log(f"phase 14 launches: " + "; ".join(f"{label} {r['launches']}" for label, r in ex.items())
+        + f"; over the phase {launches14}")
+    log(f"peak device memory {max(peak_1_13, torch.cuda.max_memory_allocated()) / 2**30:.2f} GiB; "
         f"total {time.perf_counter() - t_all:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))

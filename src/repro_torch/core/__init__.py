@@ -15,6 +15,7 @@ from repro_torch.core.lsm import (  # noqa: F401
     lsm_num_elements,
     lsm_debt,
     level_runs,
+    level_view,
     buffer_run,
     all_runs,
     compact_real,

@@ -25,6 +25,11 @@ from repro_torch.core.lsm import LSMConfig, LSMState, _reset_buffer, all_runs, l
 from repro_torch.kernels import ops
 
 
+def merge_all_levels(cfg: LSMConfig, state: LSMState):
+    """Stable newest-first merge of every level into one sorted run."""
+    return ops.merge_cascade(level_runs(cfg, state))
+
+
 def lsm_cleanup(cfg: LSMConfig, state: LSMState) -> LSMState:
     from repro_torch.core.queries import survivor_mask
 

@@ -111,6 +111,11 @@ class LSMState:
         return self.arena_val[: self.batch_size]
 
 
+def level_view(cfg: LSMConfig, state: LSMState, i: int):
+    """Level i as a (sorted, possibly all-placebo) run: views of the arena."""
+    return state.key_vars[i], state.values[i]
+
+
 def level_runs(cfg: LSMConfig, state: LSMState):
     """All levels as (key_vars, values) runs, newest (level 0) first."""
     return list(zip(state.key_vars, state.values))
@@ -124,6 +129,14 @@ def buffer_run(cfg: LSMConfig, state: LSMState):
 def all_runs(cfg: LSMConfig, state: LSMState):
     """Every queryable run, newest first: write buffer, then levels 0..L-1."""
     return [buffer_run(cfg, state)] + level_runs(cfg, state)
+
+
+def arena_view(state: LSMState):
+    """All levels concatenated, without the buffer (debug/test helper). A
+    copy: the mutators update the arena in place, and a caller snapshots
+    this to see that an op left the levels as they were."""
+    b = state.batch_size
+    return state.arena_kv[b:].clone(), state.arena_val[b:].clone()
 
 
 def _reset_buffer(state: LSMState) -> None:

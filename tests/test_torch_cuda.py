@@ -472,6 +472,19 @@ def test_cuda_serve_matches_cpu(cuda, direct, capsys):
     assert got.get("stats") == exp.get("stats")
 
 
+@pytest.mark.cuda
+def test_cuda_examples_match_cpu(cuda, capsys, monkeypatch):
+    """The quickstart and the serving example's --server variant on cuda:0:
+    every line as on the CPU, but for the repr's device field."""
+    from torch_cases import run_example, without_device_field
+
+    for name, argv in (("torch_quickstart.py", []), ("torch_dictionary_serving.py", ["--server"])):
+        got = run_example(name, argv + ["--device", "cuda:0"], capsys, monkeypatch)
+        exp = run_example(name, argv + ["--device", "cpu"], capsys, monkeypatch)
+        assert len(got) == len(exp) >= 10
+        assert without_device_field(got) == without_device_field(exp), name
+
+
 # ---------------------------------------------------------------------------
 # the training path
 # ---------------------------------------------------------------------------

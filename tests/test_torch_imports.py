@@ -1,6 +1,7 @@
 """The port stands alone: no file of repro_torch, and not chip_smoke.py,
-imports jax or the JAX package `repro`, and importing repro_torch leaves jax
-out of the process."""
+imports jax or the JAX package `repro`, and importing repro_torch, or
+running an example's port (examples/torch_*.py) to its first line of work,
+leaves jax out of the process."""
 
 import ast
 import os
@@ -40,4 +41,26 @@ def test_import_leaves_jax_unloaded():
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    # The examples' ports: none imports jax, jaxlib or repro, by its source
+    # and in a process that runs it up to its argument parsing (`--help`).
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert [p.name for p in examples] == ["torch_dictionary_serving.py", "torch_quickstart.py",
+                                          "torch_streaming_updates.py", "torch_train_lm.py"]
+    for path in examples:
+        bad = [m for m in imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+        assert not bad, f"{path.name} imports {bad}"
+    code = (
+        "import runpy, sys\n"
+        "for path in sys.argv[1:]:\n"
+        "    sys.argv = [path, '--help']\n"
+        "    try:\n"
+        "        runpy.run_path(path, run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, (path, e.code)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad); sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code, *map(str, examples)], env=env, capture_output=True, text=True,
+                         timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr

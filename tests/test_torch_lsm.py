@@ -266,3 +266,34 @@ def test_compact_real_matches():
     for g, e in zip(got, exp):
         np.testing.assert_array_equal(g.numpy(), np.asarray(e))
 
+
+def test_level_and_arena_views_and_merge_all_levels_match():
+    """level_view, arena_view and merge_all_levels on a state carried across
+    by convert; arena_view is a copy, so an in-place update after it leaves
+    what it returned as it was."""
+    b, L = 8, 4
+    rng = np.random.default_rng(11)
+    cfg_j, cfg_t = jlsm.LSMConfig(b, L), tlsm.LSMConfig(b, L)
+    js = jlsm.lsm_init(cfg_j)
+    for _ in range(6):  # r = 6: levels 1 and 2 hold residents, with ties and tombstones
+        keys = rng.integers(0, 3 * b, b)
+        kv = ((keys << 1) | (rng.random(b) >= 0.3)).astype(np.int32)
+        val = rng.integers(-100, 100, b).astype(np.int32)
+        js = jitted("stage", cfg_j)(js, kv, val, np.int32(b))
+        js = jitted("flush", cfg_j)(js, np.int32(b))
+    ts = convert.lsm_state_from_numpy(cfg_t, jax.device_get(js)._asdict(), "cpu")
+    assert ts.r == int(js.r) == 6
+    for i in range(L):
+        for g, e in zip(tlsm.level_view(cfg_t, ts, i), jlsm.level_view(cfg_j, js, i)):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(e), err_msg=f"level {i}")
+    arena = tlsm.arena_view(ts)
+    for g, e in zip(arena, jlsm.arena_view(js)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(e))
+    for g, e in zip(tclean.merge_all_levels(cfg_t, ts), jclean.merge_all_levels(cfg_j, js)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(e))
+    snapshot = [a.clone() for a in arena]
+    ts = tclean.lsm_cleanup(cfg_t, ts)
+    assert ts.r < 6
+    assert not torch.equal(tlsm.arena_view(ts)[0], snapshot[0])
+    for a, s in zip(arena, snapshot):
+        assert torch.equal(a, s)

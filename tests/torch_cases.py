@@ -1,5 +1,10 @@
-"""Seeded inputs shared by the port's kernel tests (no JAX: the card tests
-import this on machines without it)."""
+"""Seeded inputs shared by the port's kernel tests, and the runner of the
+examples' ports (no JAX: the card tests import this on machines without it)."""
+
+import re
+import runpy
+import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -93,3 +98,22 @@ def lookup_case(seed, lengths, key_hi, nq):
     runs = [sorted_run(rng, n, key_hi, placebo_tail=n // 4) for n in lengths]
     q = np.concatenate([rng.integers(0, key_hi + 3, nq - len(QUERY_EDGES)), QUERY_EDGES]).astype(np.int32)
     return runs, q
+
+
+EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
+
+
+def run_example(name, argv, capsys, monkeypatch):
+    """Run examples/<name> in this process as `python examples/<name> *argv`
+    does, and return the lines it printed to stdout."""
+    path = str(EXAMPLES / name)
+    capsys.readouterr()
+    monkeypatch.setattr(sys, "argv", [path, *argv])
+    runpy.run_path(path, run_name="__main__")
+    return capsys.readouterr().out.splitlines()
+
+
+def without_device_field(lines):
+    """The port's `Dictionary.__repr__` ends in `, device='...')`; the JAX
+    facade's has no such field. Drop it, and change no other line."""
+    return [re.sub(r"^(Dictionary\(.*), device='[^']*'\)$", r"\1)", ln) for ln in lines]
