@@ -1,0 +1,13 @@
+"""lookup_roofline (%): the least time of the traced window's lookup work (its
+bytes, lsmbench/roofline.py, over the card's published bandwidth) over the
+device time of every operation that started inside its spans. Profiler
+trace."""
+
+from lsmbench import roofline
+
+
+def read(run):
+    group = run.trace["groups"]["lookup"] if run.trace else None
+    if not group or not group["calls"]:
+        return None
+    return roofline.share(run.bytes["lookup"], group["device_s"], run.device_name)
