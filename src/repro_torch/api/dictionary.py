@@ -27,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.api.backend import Backend, CapabilityError, KeyDomainError, get_backend_class
 from repro_torch.api.plan import QueryPlan
 from repro_torch.core import semantics as sem
@@ -50,6 +51,8 @@ def resolve_device(device) -> torch.device:
 
 def _host_array(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
+        if x.is_cuda:
+            obs.count("host_syncs")
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
@@ -65,8 +68,10 @@ def _check_key_domain(name: str, keys, valid=None) -> None:
         wide = keys.to(torch.int64)
         bad = (wide < 0) | (wide > sem.MAX_USER_KEY)
         if valid is not None:
-            bad &= torch.as_tensor(_host_array(valid).astype(bool), device=keys.device).reshape(bad.shape)
-        wide = wide[bad]
+            bad &= _as_tensor(_host_array(valid).astype(bool), torch.bool, keys.device).reshape(bad.shape)
+        wide = wide[bad]   # a boolean-mask gather: waits for the device
+        if wide.is_cuda:
+            obs.count("host_syncs")
         if wide.numel() == 0:
             return
         examples = wide[:5].tolist()
@@ -89,10 +94,12 @@ def _check_key_domain(name: str, keys, valid=None) -> None:
 
 
 def _as_tensor(x, dtype, device) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=dtype)
-    np_dtype = {torch.int32: np.int32, torch.bool: np.bool_}[dtype]
-    return torch.from_numpy(np.asarray(x).astype(np_dtype)).to(device)
+    if not isinstance(x, torch.Tensor):
+        np_dtype = {torch.int32: np.int32, torch.bool: np.bool_}[dtype]
+        x = torch.from_numpy(np.asarray(x).astype(np_dtype))
+    if x.device.type == "cpu" and device.type == "cuda":
+        obs.count("host_syncs")   # a copy from pageable host memory waits for the stream
+    return x.to(device=device, dtype=dtype)
 
 
 def _as_keys(name: str, x, device) -> torch.Tensor:
@@ -245,45 +252,46 @@ class Dictionary:
         """Mixed batch of any length: insert where ~is_delete, tombstone where
         is_delete; `valid=False` lanes are dropped. The later lane or call
         wins on duplicate keys. Returns the new handle."""
-        state = self._live()
-        be = self._backend
-        self._require("update", be.caps.supports_updates)
-        if self._validate:
-            _check_key_domain("update keys", keys, valid)
-        dev = self.device
-        keys = _as_keys("keys", keys, dev)
-        n = keys.shape[0]
-        if n == 0:
-            return self
-        is_delete = (torch.zeros(n, dtype=torch.bool, device=dev) if is_delete is None
-                     else _lanes("is_delete", is_delete, n, torch.bool, dev))
-        if not be.caps.supports_deletes and bool(is_delete.any()):
-            self._require("delete", False)
-        values = (torch.zeros(n, dtype=torch.int32, device=dev) if values is None
-                  else _lanes("values", values, n, torch.int32, dev))
+        with obs.span("api.update"):
+            state = self._live()
+            be = self._backend
+            self._require("update", be.caps.supports_updates)
+            if self._validate:
+                _check_key_domain("update keys", keys, valid)
+            dev = self.device
+            keys = _as_keys("keys", keys, dev)
+            n = keys.shape[0]
+            if n == 0:
+                return self
+            is_delete = (torch.zeros(n, dtype=torch.bool, device=dev) if is_delete is None
+                         else _lanes("is_delete", is_delete, n, torch.bool, dev))
+            if not be.caps.supports_deletes and bool(is_delete.any()):
+                self._require("delete", False)
+            values = (torch.zeros(n, dtype=torch.int32, device=dev) if values is None
+                      else _lanes("values", values, n, torch.int32, dev))
 
-        kv = sem.encode(keys, is_delete)
-        vals = torch.where(is_delete, sem.EMPTY_VALUE, values)
-        if valid is not None:
-            valid = _host_array(valid).astype(bool).reshape(-1)
-            if valid.shape != (n,):
-                raise ValueError(f"valid must have shape ({n},), got {valid.shape}")
-            kv, vals, _ = compact_real(kv, vals, torch.from_numpy(valid).to(dev))
-            total_real = int(valid.sum())
-        else:
-            total_real = n
-        b = be.batch_size
-        pad = -n % b
-        if pad:
-            pk, pv = sem.placebo(pad, dev)
-            kv, vals = torch.cat([kv, pk]), torch.cat([vals, pv])
-        # A chunk with no real lanes would leave the buffer as it is.
-        for i in range(-(-total_real // b)):
-            count = min(total_real - i * b, b)
-            state = be.stage_encoded(state, kv[i * b:(i + 1) * b], vals[i * b:(i + 1) * b], count)
-        if self._flush_threshold is not None:
-            state = be.flush_state(state, self._flush_threshold)
-        return self._evolve(self._piggyback_maintain(state))
+            kv = sem.encode(keys, is_delete)
+            vals = torch.where(is_delete, sem.EMPTY_VALUE, values)
+            if valid is not None:
+                valid = _host_array(valid).astype(bool).reshape(-1)
+                if valid.shape != (n,):
+                    raise ValueError(f"valid must have shape ({n},), got {valid.shape}")
+                kv, vals, _ = compact_real(kv, vals, _as_tensor(valid, torch.bool, dev))
+                total_real = int(valid.sum())
+            else:
+                total_real = n
+            b = be.batch_size
+            pad = -n % b
+            if pad:
+                pk, pv = sem.placebo(pad, dev)
+                kv, vals = torch.cat([kv, pk]), torch.cat([vals, pv])
+            # A chunk with no real lanes would leave the buffer as it is.
+            for i in range(-(-total_real // b)):
+                count = min(total_real - i * b, b)
+                state = be.stage_encoded(state, kv[i * b:(i + 1) * b], vals[i * b:(i + 1) * b], count)
+            if self._flush_threshold is not None:
+                state = be.flush_state(state, self._flush_threshold)
+            return self._evolve(self._piggyback_maintain(state))
 
     def insert(self, keys, values, valid=None) -> "Dictionary":
         """Insert (key, value) pairs; newer values win on duplicate keys."""
@@ -304,17 +312,21 @@ class Dictionary:
         if self._validate:
             _check_key_domain("bulk_build keys", keys)
         keys = _as_keys("keys", keys, self.device)
-        if self._validate and torch.unique(keys).shape[0] != keys.shape[0]:
-            raise ValueError("bulk_build requires unique keys (paper §5.2)")
+        if self._validate:
+            if keys.is_cuda:
+                obs.count("host_syncs")   # the size of unique's output
+            if torch.unique(keys).shape[0] != keys.shape[0]:
+                raise ValueError("bulk_build requires unique keys (paper §5.2)")
         values = _lanes("values", values, keys.shape[0], torch.int32, self.device)
         return self._evolve(self._backend.bulk_build(keys, values))
 
     def cleanup(self) -> "Dictionary":
         """Purge stale elements and tombstones (paper §3.6/§4.5), folding the
         write buffer in."""
-        state = self._live()
-        self._require("cleanup", self._backend.caps.supports_cleanup)
-        return self._evolve(self._backend.cleanup(state))
+        with obs.span("api.cleanup"):
+            state = self._live()
+            self._require("cleanup", self._backend.caps.supports_cleanup)
+            return self._evolve(self._backend.cleanup(state))
 
     def maintain(self, budget: Optional[int] = None) -> "Dictionary":
         """Budgeted incremental compaction touching at most `budget`
@@ -351,10 +363,11 @@ class Dictionary:
 
     def lookup(self, keys):
         """Batched LOOKUP -> (found: bool[nq], values: int32[nq])."""
-        state = self._live()
-        if self._validate:
-            _check_key_domain("lookup keys", keys)
-        return self._backend.lookup(state, _as_keys("keys", keys, self.device))
+        with obs.span("api.lookup"):
+            state = self._live()
+            if self._validate:
+                _check_key_domain("lookup keys", keys)
+            return self._backend.lookup(state, _as_keys("keys", keys, self.device))
 
     def _window(self, op: str, k1, k2, plan: Optional[QueryPlan]):
         self._require(op, self._backend.caps.supports_ordered_queries)
@@ -367,16 +380,18 @@ class Dictionary:
     def count(self, k1, k2, plan: Optional[QueryPlan] = None):
         """COUNT(k1, k2) -> (counts: int32[nq], ok: bool[nq]); ok=False flags
         truncation by the plan."""
-        state = self._live()
-        k1, k2, plan = self._window("count", k1, k2, plan)
-        return self._backend.count(state, k1, k2, plan)
+        with obs.span("api.count"):
+            state = self._live()
+            k1, k2, plan = self._window("count", k1, k2, plan)
+            return self._backend.count(state, k1, k2, plan)
 
     def range(self, k1, k2, plan: Optional[QueryPlan] = None):
         """RANGE(k1, k2) -> (keys [nq, max_results], values, counts, ok);
         rows ascending by key, placebo-padded beyond counts."""
-        state = self._live()
-        k1, k2, plan = self._window("range", k1, k2, plan)
-        return self._backend.range(state, k1, k2, plan)
+        with obs.span("api.range"):
+            state = self._live()
+            k1, k2, plan = self._window("range", k1, k2, plan)
+            return self._backend.range(state, k1, k2, plan)
 
     def size(self):
         """Live (visible) element count, int32 scalar tensor."""

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import semantics as sem
 from repro_torch.kernels import ops
 
@@ -46,17 +47,22 @@ def push_batch(cfg, state, carry_kv, carry_val):
     if state.r >= cfg.max_batches:
         state.overflowed = True
         return state
-    j = placement_level(state.r)
-    levels = [(state.key_vars[i], state.values[i]) for i in range(j)]
-    ops.merge_cascade(
-        [(carry_kv, carry_val)] + levels, out=(state.key_vars[j], state.values[j])
-    )
-    for kv, val in levels:
-        kv.fill_(sem.PLACEBO_KV)
-        val.fill_(sem.EMPTY_VALUE)
-    state.lvl_debt[:j] = 0
-    state.lvl_debt[j] = run_stale_count(state.key_vars[j])
-    state.r += 1
+    with obs.span("cascade.push"):
+        j = placement_level(state.r)
+        obs.count(f"cascade.carries.L{j}")
+        obs.count("cascade.merged_elements", cfg.batch_size << j)
+        levels = [(state.key_vars[i], state.values[i]) for i in range(j)]
+        with obs.span("cascade.merge"):
+            ops.merge_cascade(
+                [(carry_kv, carry_val)] + levels, out=(state.key_vars[j], state.values[j])
+            )
+        with obs.span("cascade.debt"):
+            for kv, val in levels:
+                kv.fill_(sem.PLACEBO_KV)
+                val.fill_(sem.EMPTY_VALUE)
+            state.lvl_debt[:j] = 0
+            state.lvl_debt[j] = run_stale_count(state.key_vars[j])
+        state.r += 1
     return state
 
 
@@ -68,8 +74,11 @@ def compact_run(merged_kv, merged_val, keep, out_size: int):
     total = int(keep.sum())
     kv, val = sem.placebo(out_size, merged_kv.device)
     n = min(total, out_size)
+    # The read of the count, and each boolean-mask gather (which sizes its
+    # output on the host), wait for the device.
     kv[:n] = merged_kv[keep][:n]
     val[:n] = merged_val[keep][:n]
+    obs.count("host_syncs", 3)
     return kv, val, total
 
 

@@ -10,15 +10,18 @@
     survives; tombstones are purged only when no deeper level holds residents.
     A budget of None (or >= capacity + b) is a full cleanup; below b, a no-op.
 
-Both read their survivor count from the device (the one host sync of each),
-since it sets the new resident count. `only_if_debt=True` reads the prefix
-debt from the device and skips the work when it is zero.
+Both read their survivor count from the device, since it sets the new
+resident count, and gather the survivors by a boolean mask, which sizes its
+output on the host: three host waits each (`cascade.compact_run`).
+`only_if_debt=True` reads the prefix debt from the device, one more wait,
+and skips the work when it is zero.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import cascade
 from repro_torch.core import semantics as sem
 from repro_torch.core.lsm import LSMConfig, LSMState, _reset_buffer, all_runs, level_runs
@@ -34,15 +37,21 @@ def lsm_cleanup(cfg: LSMConfig, state: LSMState) -> LSMState:
     from repro_torch.core.queries import survivor_mask
 
     b = cfg.batch_size
-    merged_kv, merged_val = ops.merge_cascade(all_runs(cfg, state))
-    compact_kv, compact_val, total = cascade.compact_run(
-        merged_kv, merged_val, survivor_mask(merged_kv), cfg.capacity
-    )
-    del merged_kv, merged_val
-    r_new = -(-min(total, cfg.capacity) // b)
-    cascade.redistribute(cfg, compact_kv, compact_val, r_new, state.key_vars, state.values)
-    _reset_buffer(state)
-    state.lvl_debt.zero_()
+    with obs.span("cleanup"):
+        obs.count("cleanup.resident", state.r * b + state.buf_n)
+        with obs.span("cleanup.merge"):
+            merged_kv, merged_val = ops.merge_cascade(all_runs(cfg, state))
+        with obs.span("cleanup.compact"):
+            compact_kv, compact_val, total = cascade.compact_run(
+                merged_kv, merged_val, survivor_mask(merged_kv), cfg.capacity
+            )
+        obs.count("cleanup.survivors", total)
+        del merged_kv, merged_val
+        r_new = -(-min(total, cfg.capacity) // b)
+        with obs.span("cleanup.redistribute"):
+            cascade.redistribute(cfg, compact_kv, compact_val, r_new, state.key_vars, state.values)
+            _reset_buffer(state)
+            state.lvl_debt.zero_()
     state.r = r_new
     state.overflowed = state.overflowed or total > cfg.capacity
     return state
@@ -95,8 +104,10 @@ def lsm_maintain(cfg: LSMConfig, state: LSMState, budget: int | None = None, *,
     j = maintain_prefix_level(cfg, budget)
     if j < 0:
         return state
-    if only_if_debt and int(state.lvl_debt[: j + 1].sum()) == 0:
-        return state
+    if only_if_debt:
+        obs.count("host_syncs")
+        if int(state.lvl_debt[: j + 1].sum()) == 0:
+            return state
     return _compact_prefix(cfg, state, j)
 
 

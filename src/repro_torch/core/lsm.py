@@ -37,6 +37,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import cascade
 from repro_torch.core import semantics as sem
 from repro_torch.kernels import ops
@@ -191,26 +192,27 @@ def lsm_stage(cfg: LSMConfig, state: LSMState, key_vars, values, count: int) -> 
         raise ValueError(f"sub-batch must have shape ({b},), got {tuple(key_vars.shape)}/{tuple(values.shape)}")
     if not 0 <= count <= b:
         raise ValueError(f"count must be in [0, {b}], got {count}")
-    total = state.buf_n + count
-    pk, pv = sem.placebo(b, key_vars.device)
-    staged_kv = torch.cat([state.buf_kv, pk])
-    staged_val = torch.cat([state.buf_val, pv])
-    staged_kv[state.buf_n: total] = key_vars[:count]
-    staged_val[state.buf_n: total] = values[:count]
-    if total > b:
-        # The first b staged lanes are all real, in arrival order.
-        state = cascade.push_batch(cfg, state, *ops.sort_pairs_recency(staged_kv[:b], staged_val[:b]))
-        staged_kv, staged_val, total = staged_kv[b:], staged_val[b:], total - b
-    else:
-        staged_kv, staged_val = staged_kv[:b], staged_val[:b]
-    skv, sval = ops.sort_pairs_recency(staged_kv, staged_val)
-    state.buf_sorted_kv.copy_(skv)
-    state.buf_sorted_val.copy_(sval)
-    state.buf_kv.copy_(staged_kv)
-    state.buf_val.copy_(staged_val)
-    lane = torch.arange(b, dtype=torch.int32, device=key_vars.device)
-    state.buf_seq.copy_(torch.where(lane < total, lane, b))
-    state.buf_n = total
+    with obs.span("lsm.stage"):
+        total = state.buf_n + count
+        pk, pv = sem.placebo(b, key_vars.device)
+        staged_kv = torch.cat([state.buf_kv, pk])
+        staged_val = torch.cat([state.buf_val, pv])
+        staged_kv[state.buf_n: total] = key_vars[:count]
+        staged_val[state.buf_n: total] = values[:count]
+        if total > b:
+            # The first b staged lanes are all real, in arrival order.
+            state = cascade.push_batch(cfg, state, *ops.sort_pairs_recency(staged_kv[:b], staged_val[:b]))
+            staged_kv, staged_val, total = staged_kv[b:], staged_val[b:], total - b
+        else:
+            staged_kv, staged_val = staged_kv[:b], staged_val[:b]
+        skv, sval = ops.sort_pairs_recency(staged_kv, staged_val)
+        state.buf_sorted_kv.copy_(skv)
+        state.buf_sorted_val.copy_(sval)
+        state.buf_kv.copy_(staged_kv)
+        state.buf_val.copy_(staged_val)
+        lane = torch.arange(b, dtype=torch.int32, device=key_vars.device)
+        state.buf_seq.copy_(torch.where(lane < total, lane, b))
+        state.buf_n = total
     return state
 
 

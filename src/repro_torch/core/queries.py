@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import semantics as sem
 from repro_torch.core.lsm import LSMConfig, LSMState, all_runs
 from repro_torch.kernels import ops
@@ -24,7 +25,8 @@ from repro_torch.kernels import ops
 def lookup_runs(runs, query_keys):
     """LOOKUP over newest-first runs: the first matching run wins; a tombstone
     resolves to not found. Returns (found: bool[nq], values: int32[nq])."""
-    return ops.lookup_runs_fused(runs, query_keys)
+    with obs.span("queries.lookup"):
+        return ops.lookup_runs_fused(runs, query_keys)
 
 
 def lsm_lookup(cfg: LSMConfig, state: LSMState, query_keys):
@@ -42,33 +44,39 @@ def _gather_candidates(runs, k1, k2, max_candidates: int, flat=None):
     """
     nq = k1.shape[0]
     device = k1.device
-    lows, highs = ops.window_bounds(runs, k1, k2)               # [n_runs, nq] each
-    counts_m = (highs - lows).clamp(min=0)
-    offsets = (torch.cumsum(counts_m, 0) - counts_m).to(torch.int32)
-    total = counts_m.sum(0).to(torch.int32)
-    ok = total <= max_candidates
+    with obs.span("queries.bounds"):
+        lows, highs = ops.window_bounds(runs, k1, k2)           # [n_runs, nq] each
+    with obs.span("queries.tile"):
+        counts_m = (highs - lows).clamp(min=0)
+        offsets = (torch.cumsum(counts_m, 0) - counts_m).to(torch.int32)
+        total = counts_m.sum(0).to(torch.int32)
+        ok = total <= max_candidates
 
-    slots = torch.arange(max_candidates, dtype=torch.int64, device=device)[None, :]
-    gather_idx = torch.zeros((nq, max_candidates), dtype=torch.int64, device=device)
-    valid_slot = torch.zeros((nq, max_candidates), dtype=torch.bool, device=device)
-    start = 0
-    for r, (kv, _) in enumerate(runs):
-        off = offsets[r][:, None]
-        sel = (slots >= off) & (slots < off + counts_m[r][:, None])
-        idx = start + lows[r][:, None] + (slots - off)
-        gather_idx = torch.where(sel, idx, gather_idx)
-        valid_slot |= sel
-        start += kv.shape[0]
+        slots = torch.arange(max_candidates, dtype=torch.int64, device=device)[None, :]
+        gather_idx = torch.zeros((nq, max_candidates), dtype=torch.int64, device=device)
+        valid_slot = torch.zeros((nq, max_candidates), dtype=torch.bool, device=device)
+        start = 0
+        for r, (kv, _) in enumerate(runs):
+            off = offsets[r][:, None]
+            sel = (slots >= off) & (slots < off + counts_m[r][:, None])
+            idx = start + lows[r][:, None] + (slots - off)
+            gather_idx = torch.where(sel, idx, gather_idx)
+            valid_slot |= sel
+            start += kv.shape[0]
 
-    if flat is None:
-        flat = (torch.cat([kv for kv, _ in runs]), torch.cat([v for _, v in runs]))
-    cand_kv = torch.where(valid_slot, flat[0][gather_idx], sem.PLACEBO_KV)
-    cand_val = torch.where(valid_slot, flat[1][gather_idx], sem.EMPTY_VALUE)
+        if flat is None:
+            flat = (torch.cat([kv for kv, _ in runs]), torch.cat([v for _, v in runs]))
+        cand_kv = torch.where(valid_slot, flat[0][gather_idx], sem.PLACEBO_KV)
+        cand_val = torch.where(valid_slot, flat[1][gather_idx], sem.EMPTY_VALUE)
+    obs.count("queries.tile_slots", nq * max_candidates)
+    if obs.enabled():
+        obs.count_device("queries.candidates", total.clamp(max=max_candidates))
 
     # Stage 4: rows were filled newest run first, so a stable sort by
     # original key keeps the newest element first in each equal-key segment.
-    orig_s, perm = torch.sort(sem.original_key(cand_kv), dim=1, stable=True)
-    return orig_s, cand_kv.gather(1, perm), cand_val.gather(1, perm), total, ok
+    with obs.span("queries.row_sort"):
+        orig_s, perm = torch.sort(sem.original_key(cand_kv), dim=1, stable=True)
+        return orig_s, cand_kv.gather(1, perm), cand_val.gather(1, perm), total, ok
 
 
 def _validate(orig_s, kv_s):
@@ -80,26 +88,28 @@ def _validate(orig_s, kv_s):
 def count_runs(runs, k1, k2, max_candidates: int, flat=None):
     """COUNT(k1, k2) over runs -> (counts: int32[nq], ok: bool[nq])."""
     orig_s, kv_s, _, _, ok = _gather_candidates(runs, k1, k2, max_candidates, flat)
-    return _validate(orig_s, kv_s).sum(1).to(torch.int32), ok
+    with obs.span("queries.select"):
+        return _validate(orig_s, kv_s).sum(1).to(torch.int32), ok
 
 
 def range_runs(runs, k1, k2, max_candidates: int, max_results: int, flat=None):
     """RANGE(k1, k2) -> (keys [nq, max_results], values, counts, ok); rows are
     padded with PLACEBO_KEY / EMPTY_VALUE beyond counts."""
     orig_s, kv_s, val_s, _, ok = _gather_candidates(runs, k1, k2, max_candidates, flat)
-    valid = _validate(orig_s, kv_s)
-    counts = valid.sum(1).to(torch.int32)
-    ok = ok & (counts <= max_results)
+    with obs.span("queries.select"):
+        valid = _validate(orig_s, kv_s)
+        counts = valid.sum(1).to(torch.int32)
+        ok = ok & (counts <= max_results)
 
-    nq = orig_s.shape[0]
-    tgt = torch.cumsum(valid, 1) - 1
-    # Column max_results is a drop slot for non-survivors and overflow.
-    tgt = torch.where(valid & (tgt < max_results), tgt, max_results)
-    out_keys = torch.full((nq, max_results + 1), sem.PLACEBO_KEY, dtype=torch.int32, device=k1.device)
-    out_vals = torch.full((nq, max_results + 1), sem.EMPTY_VALUE, dtype=torch.int32, device=k1.device)
-    out_keys.scatter_(1, tgt, orig_s)
-    out_vals.scatter_(1, tgt, val_s)
-    return out_keys[:, :max_results], out_vals[:, :max_results], counts, ok
+        nq = orig_s.shape[0]
+        tgt = torch.cumsum(valid, 1) - 1
+        # Column max_results is a drop slot for non-survivors and overflow.
+        tgt = torch.where(valid & (tgt < max_results), tgt, max_results)
+        out_keys = torch.full((nq, max_results + 1), sem.PLACEBO_KEY, dtype=torch.int32, device=k1.device)
+        out_vals = torch.full((nq, max_results + 1), sem.EMPTY_VALUE, dtype=torch.int32, device=k1.device)
+        out_keys.scatter_(1, tgt, orig_s)
+        out_vals.scatter_(1, tgt, val_s)
+        return out_keys[:, :max_results], out_vals[:, :max_results], counts, ok
 
 
 def survivor_mask(key_vars):

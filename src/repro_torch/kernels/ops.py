@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import semantics as sem
 from repro_torch.kernels import bitonic_sort, lsm_lookup, merge_path
 
@@ -43,11 +44,12 @@ def sort_pairs_recency(key_vars, values):
     """Sort by original key; among equal keys the later input lane first,
     whatever its status bit (the write buffer's arrival-order rule). Placebos
     sort last. One stable sort on the int64 key (orig << 32) | (n - lane)."""
-    n = key_vars.shape[0]
-    rev = torch.arange(n, 0, -1, dtype=torch.int64, device=key_vars.device)
-    key = (sem.original_key(key_vars).to(torch.int64) << 32) | rev
-    perm = torch.sort(key, stable=True).indices
-    return key_vars[perm], values[perm]
+    with obs.span("ops.sort_recency"):
+        n = key_vars.shape[0]
+        rev = torch.arange(n, 0, -1, dtype=torch.int64, device=key_vars.device)
+        key = (sem.original_key(key_vars).to(torch.int64) << 32) | rev
+        perm = torch.sort(key, stable=True).indices
+        return key_vars[perm], values[perm]
 
 
 def lower_bound(sorted_kv, query_keys):
