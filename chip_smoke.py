@@ -19,7 +19,9 @@ Phases, one line each with its seconds:
      13 LSM-shaped runs, the same runs over 64 keys so equal-key segments
      cross many sample strides, one run of 2^27 slots, empty runs and 32
      runs, each at query counts on both sides of the kernel's bucket
-     threshold and with tombstone hits);
+     threshold and with tombstone hits; for count/range stages 2-5: 13
+     LSM-shaped runs, windows cut inside a run, rows that overflow, and
+     buffers in shared memory and in the scratch array);
   4. the main path through the `Dictionary` facade at the paper's Table 2
      scale (n = 2^27 resident elements, b = 2^16, L = 12): fill by inserts,
      delete, re-insert, flush, lookup, count, range, maintain, cleanup, size,
@@ -32,7 +34,9 @@ Phases, one line each with its seconds:
      one launch beside 26 library searches and 26 single-run launches; the
      lookup also device only, with its footprint in 32-byte sectors beside
      its element bound, and at the sorted array's shape, one run of 2^27
-     slots, on phase 6's data; the
+     slots, on phase 6's data; count/range stages 2-5 in one launch at the
+     scan cell's shape, 13 runs of the b = 2^16 arena at r = 2046 and 2^14
+     windows, COUNT and RANGE, beside the plain tile pipeline; the
      rows of the batch sort, timed as the whole function with its block sort
      and first K-way round beside it, and of the pairwise merge, with its
      split and merge passes apart, are timed after phase 6, on its data);
@@ -239,7 +243,8 @@ def max_err(torch, got, exp) -> int:
 def check_kernels(torch, device, rng):
     from repro_torch.kernels import bitonic_sort, lsm_lookup, merge_path
 
-    errs = {"merge_cascade": 0, "bound": 0, "fused_lookup": 0, "bitonic_sort": 0, "merge_path": 0}
+    errs = {"merge_cascade": 0, "bound": 0, "fused_lookup": 0, "bitonic_sort": 0, "merge_path": 0,
+            "window_select": 0}
     cases = 0
     merge_cases = [
         ([1 << 20], 1000, False),
@@ -416,7 +421,37 @@ def check_kernels(torch, device, rng):
         torch.cuda.synchronize()
         errs["merge_cascade"] = max(errs["merge_cascade"], max_err(torch, got, exp))
         cases += 1
+
+    cases += check_window_select(torch, device, gen, errs)
     return errs, cases
+
+
+def check_window_select(torch, device, gen, errs, base=1 << 10, nq=1 << 14):
+    """Count/range stages 2-5 against the plain version: 13 LSM-shaped runs
+    (a buffer of `base` slots and 12 levels) over few keys (duplicates within
+    and across runs, every fourth level all placebos) and over the whole key
+    range, `nq` windows with k1 > k2 and the edge keys; plans that cut
+    windows inside a run and overflow rows, the main path's, and ones whose
+    buffers take the scratch array. Returns the cases run."""
+    from repro_torch.kernels import lsm_lookup, window_select
+
+    cases = 0
+    for key_hi in (1 << 12, MAX_USER_KEY + 1):
+        runs = [device_run(torch, gen, n, key_hi, device, placebo_frac=1.0 if s % 4 == 3 else 0.25)
+                for s, n in enumerate([base] + [base << i for i in range(12)])]
+        k1 = lookup_queries(torch, gen, [kv for kv, _ in runs], key_hi, nq, device)
+        k2 = (k1.long() + torch.randint(-8, 1 << 12, k1.shape, generator=gen, device=device)).clamp(
+            -INT32_MAX - 1, INT32_MAX).to(torch.int32)
+        lows, highs = lsm_lookup.bounds_runs([kv for kv, _ in runs], k1, k2)
+        for m, r in ((1024, 512), (100, 16), (777, 1000), (5000, 300)):
+            got = window_select.range_windows(runs, lows, highs, m, r)
+            exp = window_select.range_plain(runs, lows, highs, m, r)
+            got_c = window_select.count_windows(runs, lows, highs, m)
+            exp_c = window_select.count_plain(runs, lows, highs, m)
+            torch.cuda.synchronize()
+            errs["window_select"] = max(errs["window_select"], max_err(torch, got + got_c, exp + exp_c))
+            cases += 2
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -897,6 +932,57 @@ def kernel_rows(torch, d, q_lookup, k1, errs, launches):
         *lookup_times(torch, kvs, vals, q_lookup, check, f"{len(kvs)} runs, {total} slots"))
     log_rows(rows)
     return rows
+
+
+def window_select_row(torch, device, rng, errs, launches, b=1 << 16, nq=1 << 14):
+    """The count/range kernel at the scan cell's shape: the b = 2^16 arena at
+    r = 2046 (a full write buffer and levels 1-10 of uniform keys, 30%
+    tombstones; levels 0 and 11 all placebos: 13 runs, 2^28 slots, ~2^27
+    resident), 2^14 windows of 1024 keys, M = 1024, R = 512. COUNT and RANGE
+    from stage 1's bounds, each held against its plain version, then timed
+    back to back and device only, beside the plain version and its bound:
+    the bounds (8 bytes a run and window) and each candidate's key read, the
+    counts and ok flags written; for RANGE also each row written and the
+    value of each survivor in it read."""
+    from repro_torch.kernels import lsm_lookup, window_select
+
+    r_batches, m, r = 2046, 1024, 512
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.integers(1 << 31)))
+    runs = [device_run(torch, gen, b, MAX_USER_KEY + 1, device, placebo_frac=0)]
+    runs += [device_run(torch, gen, b << i, MAX_USER_KEY + 1, device, placebo_frac=0 if r_batches >> i & 1 else 1.0)
+             for i in range(12)]
+    flat = (torch.cat([kv for kv, _ in runs]), torch.cat([v for _, v in runs]))
+    k1 = torch.randint(0, MAX_USER_KEY - 1022, (nq,), generator=gen, device=device, dtype=torch.int32)
+    lows, highs = lsm_lookup.bounds_runs([kv for kv, _ in runs], k1, k1 + 1023)
+    cands = int((highs - lows).clamp(min=0).sum(0).clamp(max=m).sum())
+    calls = {"count": (lambda: window_select.count_windows(runs, lows, highs, m),
+                       lambda: window_select.count_plain(runs, lows, highs, m, flat)),
+             "range": (lambda: window_select.range_windows(runs, lows, highs, m, r),
+                       lambda: window_select.range_plain(runs, lows, highs, m, r, flat))}
+    out = {}
+    for name, (kernel, plain) in calls.items():
+        got, exp = kernel(), plain()
+        errs["window_select"] = max(errs["window_select"], max_err(torch, got, exp))
+        require(errs["window_select"] == 0, f"window_select {name} differs from its plain version")
+        nbytes = 8 * len(runs) * nq + 4 * cands + 5 * nq
+        if name == "range":
+            nbytes += 8 * r * nq + 4 * int(exp[2].clamp(max=r).sum())
+        out[name] = dict(what=f"{name}, {len(runs)} runs, {nq} windows, M = {m}" + (f", R = {r}" if name == "range"
+                                                                                    else ""),
+                         ms=time_ms(torch, kernel, iters=20), device_ms=graph_ms(torch, kernel),
+                         plain_ms=time_ms(torch, plain, iters=3), bound_ms=bound(nbytes, 0)[0], bytes=nbytes,
+                         survivors=int(exp[0 if name == "count" else 2].sum()), ok=bool(exp[-1].all()))
+    log(f"  window_select: {cands} candidates in {nq} windows ({cands / nq:.2f} a window), "
+        f"{out['count']['survivors']} survivors")
+    c = out["count"]
+    row = dict(name="window_select", route="cuda", source="src/repro_torch/csrc/window_select.cu",
+               replaces="none (src/repro/core/queries.py:80-143, jnp and lax.sort)",
+               launches=launches.get("window_select", 0), max_abs_err=errs["window_select"], ms=c["ms"],
+               plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by="bytes", library_ms=None,
+               also=[dict(what=c["what"] + ": device only", ms=None, device_ms=c["device_ms"]), out["range"]])
+    log_rows([row])
+    return row
 
 
 def sa_lookup_line(torch, device, sa_d, rows, errs, seed):
@@ -2344,7 +2430,7 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import _build, bitonic_sort, lsm_lookup, merge_path
+    from repro_torch.kernels import _build, bitonic_sort, lsm_lookup, merge_path, window_select
 
     t_all = time.perf_counter()
     device = torch.device("cuda")
@@ -2356,7 +2442,7 @@ def main() -> int:
 
     kernels = {"merge_cascade": merge_path.CASCADE_KERNEL, "bound": lsm_lookup.BOUND_KERNEL,
                "fused_lookup": lsm_lookup.LOOKUP_KERNEL, "bitonic_sort": bitonic_sort.KERNEL,
-               "merge_path": merge_path.PATH_KERNEL}
+               "merge_path": merge_path.PATH_KERNEL, "window_select": window_select.SELECT_KERNEL}
     t0 = time.perf_counter()
     _build.build_all(list(kernels.values()))
     log(f"phase 2 build: {len(kernels)} kernels, {time.perf_counter() - t0:.2f} s")
@@ -2388,7 +2474,7 @@ def main() -> int:
 
     (d, rates, q_lookup), launches4 = drive(4, lambda: drive_main_path(
         torch, device, args.seed, log2_n=27, b=1 << 16, lanes=1 << 20, n_lookups=1 << 20, n_windows=1 << 14, reps=5))
-    staged_path = ("merge_cascade", "bound", "fused_lookup")
+    staged_path = ("merge_cascade", "bound", "fused_lookup", "window_select")
     require(all(launches4[k] > 0 for k in staged_path), f"a kernel did not run on phase 4's path: {launches4}")
 
     t0 = time.perf_counter()
@@ -2397,7 +2483,7 @@ def main() -> int:
     from repro_torch.api import QueryPlan
     profile(torch, f"count of {k1.shape[0]} windows of 1024 keys",
             lambda: d.count(k1, k1 + 1023, QueryPlan(max_candidates=1024, max_results=512)), top=10,
-            show=("bounds_runs_kernel", "radixSort"))
+            show=("bounds_runs_kernel", "window_select_kernel"))
     profile(torch, f"lookup of {q_lookup.shape[0]} queries", lambda: d.lookup(q_lookup), top=10,
             show=("fused_lookup_kernel", "bucket_count_kernel", "bucket_scatter_kernel"))
     keys = dev_tensor(torch, rng.integers(0, MAX_USER_KEY + 1, 1 << 20).astype(np.int32), device)
@@ -2405,6 +2491,7 @@ def main() -> int:
     log(f"phase 5 kernel timing: {time.perf_counter() - t0:.2f} s")
     del d, q_lookup, keys
     torch.cuda.empty_cache()
+    rows.append(window_select_row(torch, device, rng, errs, launches4))
 
     b, capacity = 1 << 16, 1 << 27
     (slice_rates, bulk_keys, bulk_vals, lsm_d, sa_d), launches6 = drive(6, lambda: drive_slice(

@@ -20,6 +20,7 @@ not 0 and counts the launch otherwise.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -171,6 +172,12 @@ def run_pointers(kvs, vals=None):
     if [t.shape[0] for t in vals] != lens:
         raise ValueError(f"run kv/val lengths differ: {lens} vs {[t.shape[0] for t in vals]}")
     return kvp, (P * k)(*[t.data_ptr() for t in vals]), (I64 * k)(*lens)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_cuda_int32(name: str, *tensors) -> torch.device:

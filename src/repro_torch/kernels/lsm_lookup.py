@@ -27,7 +27,7 @@ import functools
 import torch
 
 from repro_torch.core import semantics as sem
-from repro_torch.kernels._build import I32, I64, MAX_RUNS, P, Kernel, check_cuda_int32, run_pointers
+from repro_torch.kernels._build import I32, I64, MAX_RUNS, P, Kernel, check_cuda_int32, run_pointers, sm_count
 
 BOUND_KERNEL = Kernel(
     "bounds.cu", "repro_bound",
@@ -147,11 +147,6 @@ def lookup_grid(nq: int, threads: int, sms: int) -> int:
     return max(1, min(-(-nq // threads), LOOKUP_BLOCKS_PER_SM * sms))
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def fused_lookup_plain(runs_kv, runs_val, query_keys):
     """Newest-first per-run binary search; first run whose lower-bound element
     has the query's original key wins."""
@@ -191,7 +186,7 @@ def fused_lookup_runs(runs_kv, runs_val, query_keys):
         raise ValueError("fused_lookup_runs takes int32 positions; a run of 2^31 elements or more is too long")
     layout, total = _layout_arg(tuple(n), SAMPLE_INTS)
     nq = query_keys.shape[0]
-    blocks = lookup_grid(nq, LOOKUP_KERNEL.constant("repro_lookup_threads"), _sm_count(device.index))
+    blocks = lookup_grid(nq, LOOKUP_KERNEL.constant("repro_lookup_threads"), sm_count(device.index))
     out = torch.empty((2, nq), dtype=torch.int32, device=device)
     # The kernel's scratch: the queries in bucket order (2 * nq, from
     # repro_lookup_bucket_min queries on), the samples (total), the bucket

@@ -35,8 +35,9 @@ sub-batch into the write buffer); `ops.sort_recency` (the write buffer's
 recency sort); `cascade.push` with `cascade.merge` (the K-way merge) and
 `cascade.debt` (the placebo fills and the stale count); `cleanup` with
 `cleanup.merge`, `cleanup.compact`, `cleanup.redistribute`; `queries.lookup`;
-count and range's `queries.bounds` (stage 1), `queries.tile` (stages 2-3),
-`queries.row_sort` (stage 4), `queries.select` (stage 5).
+count and range's `queries.bounds` (stage 1) and `queries.tile` (on the card
+the one launch of stages 2-5; on the CPU stages 2-3, then `queries.row_sort`
+(stage 4) and `queries.select` (stage 5)).
 
 Counters: `host_syncs` (times the path waits for the device: the core's
 reads of device data, counted on every device so that a CPU run shows where
@@ -44,9 +45,10 @@ the card would wait, and the facade's key-domain checks and copies of caller
 inputs between host memory and the card, counted where they cross to or
 from a card); `cascade.carries.L<j>` and `cascade.merged_elements`
 (each carry into level j merges b * 2^j elements); `cleanup.resident` and
-`cleanup.survivors`; `queries.tile_slots` (the candidate tile's slots) and
-`queries.candidates` (the device counter of the slots that hold a
-candidate).
+`cleanup.survivors`; `queries.tile_slots` (the slots of the candidate
+budget, windows times max_candidates), `queries.candidates` (the device
+counter of the slots that hold a candidate) and `queries.window_kernel` (the
+windows that the count/range kernel answered, added at each launch).
 """
 
 from __future__ import annotations

@@ -23,7 +23,7 @@ from repro.kernels import merge_path as jmerge
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import queries as tq
-from repro_torch.kernels import lsm_lookup, merge_path, ops
+from repro_torch.kernels import lsm_lookup, merge_path, ops, window_select
 from torch_cases import MAX_USER_KEY, PLACEBO_KEY, QUERY_EDGES, eq, sorted_run, t
 
 # Runs as count/range sees them, newest first: an empty write buffer, levels
@@ -106,6 +106,55 @@ def test_count_range_equal_before_and_after_one_launch_stage1(kind, monkeypatch)
         for g, o, e in zip(got, old, exp):
             eq(g, o)
             eq(g, e)
+
+
+# Stages 2-5 from stage 1's bounds (kernels/window_select.py, the plain
+# version on the CPU): (runs kind, windows, max_candidates, max_results).
+# "lsm" at M = 24 cuts windows inside a run and R = 3 overflows rows; "short"
+# has empty runs and M = 7 (not a power of two); "random" has windows whose
+# slices are mostly empty; nq = 0 has no window.
+SELECT_CASES = [("lsm", 64, 24, 3), ("short", 48, 7, 2), ("random", 40, 37, 10), ("lsm", 0, 16, 4)]
+
+
+@pytest.mark.parametrize("case", range(len(SELECT_CASES)))
+def test_window_select_plain_matches_jax_count_range(case):
+    """`count_windows` / `range_windows` on CPU tensors, from
+    `bounds_runs_plain`, equal the reference's `count_runs` / `range_runs`:
+    truncated windows, overflowing rows, empty runs and no windows."""
+    kind, nq, m, r = SELECT_CASES[case]
+    runs = runs_case(kind, 13 + case)
+    k1, k2 = windows(np.random.default_rng(case), RUN_KINDS[kind][1], max(nq, len(QUERY_EDGES)))
+    k1, k2 = k1[:nq], k2[:nq]
+    truns = [(t(kv), t(v)) for kv, v in runs]
+    lows, highs = lsm_lookup.bounds_runs_plain([kv for kv, _ in truns], t(k1), t(k2))
+    jruns = [(jnp.asarray(kv), jnp.asarray(v)) for kv, v in runs]
+    got = (window_select.count_windows(truns, lows, highs, m), window_select.range_windows(truns, lows, highs, m, r))
+    exp = (jq.count_runs(jruns, jnp.asarray(k1), jnp.asarray(k2), m),
+           jq.range_runs(jruns, jnp.asarray(k1), jnp.asarray(k2), m, r))
+    for g_out, e_out in zip(got, exp):
+        for g, e in zip(g_out, e_out):
+            assert g.shape == e.shape
+            eq(g, e)
+    if kind == "lsm" and nq:  # the case has cut windows and overflowing rows
+        assert ((highs - lows).clamp(min=0).sum(0) > m).any() and (got[1][2] > r).any()
+
+
+def test_window_select_scratch_sizing():
+    """The kernel's buffer a window and its scratch array: none while a
+    block's buffers fit in shared memory; past that, as many buffers as the
+    windows fill, capped by residency and the slot budget, a block at least."""
+    assert window_select.buffer_ints(1024, False) == 1024
+    assert window_select.buffer_ints(1024, True) == 1024 + 64
+    assert window_select.buffer_ints(33, True) == 33 + 4
+    assert window_select.buffer_ints(0, True) == 0
+    shared = 46 * 1024
+    assert window_select.scratch_warps(1 << 14, 1088, 4, shared, 132) == 0
+    assert window_select.scratch_warps(1 << 14, 2944, 4, shared, 132) == 0
+    assert window_select.scratch_warps(1 << 14, 2945, 4, shared, 132) == 132 * window_select.WARPS_PER_SM
+    assert window_select.scratch_warps(5, 5000, 4, shared, 132) == 8
+    big = window_select.SCRATCH_INTS // 8
+    assert window_select.scratch_warps(1 << 14, big, 4, shared, 132) == 8
+    assert window_select.scratch_warps(1 << 14, 4 * big, 4, shared, 132) == 4
 
 
 # Merge Path split cases: (na, nb, key_hi); the SA shape is a tiny `a` into

@@ -149,6 +149,84 @@ def test_cuda_lookup_stride_crossing_segments(cuda, nq):
     assert ((exp[0] >> 1 == t(q)) & (exp[0] & 1 == 0)).any()  # tombstone hits
 
 
+# Count/range stages 2-5 (csrc/window_select.cu): run lengths, key_hi,
+# windows, window width, and the (max_candidates, max_results) plans. Few
+# keys put duplicates within and across runs (mixed status bits, every
+# fourth run all placebos); small plans cut windows inside a run and
+# overflow rows; M = 2944 is the most a COUNT buffer keeps in shared memory,
+# M = 3000 and above (RANGE from 2770) take the scratch array.
+SELECT_CASES = [
+    ([1 << 12] + [256 << i for i in range(10)], 1 << 16, 3000, 600, [(100, 16), (1024, 512), (333, 40)]),
+    ([5000], 100, 1000, 20, [(1000, 50), (64, 3)]),
+    ([300] * 32, 3000, 2000, 100, [(777, 100), (33, 5)]),
+    ([0, 17, 0, 0, 250, 0], 60, 500, 20, [(30, 8), (1, 1), (0, 0)]),
+    ([1 << 14] * 4, 1 << 12, 1500, 400, [(2944, 0), (3000, 300), (5000, 300), (8192, 1024)]),
+    ([100, 0, 100], 50, 0, 10, [(16, 4)]),
+]
+
+
+@pytest.mark.cuda
+def test_cuda_window_select_matches_plain(cuda):
+    """count_runs / range_runs on the card (one launch of the kernel after
+    stage 1) against the same calls on CPU tensors (the plain tile, row sort
+    and masks), bit for bit, ok=False windows included."""
+    from repro_torch.core import queries
+    from repro_torch.kernels import window_select
+
+    kernel = window_select.SELECT_KERNEL
+    seen = {"cut": False, "overflow": False}
+    for c, (lengths, key_hi, nq, width, plans) in enumerate(SELECT_CASES):
+        rng = np.random.default_rng(40 + c)
+        runs = [sorted_run(rng, n, key_hi, placebo_tail=n if s % 4 == 3 else n // 4) for s, n in enumerate(lengths)]
+        k1 = np.concatenate([rng.integers(-2, key_hi + 3, max(nq - len(QUERY_EDGES), 0)), QUERY_EDGES])[:nq]
+        k2 = np.clip(k1 + rng.integers(-3, width, nq), -(1 << 31), (1 << 31) - 1).astype(np.int32)
+        k1 = k1.astype(np.int32)
+        cpu = [(t(kv), t(v)) for kv, v in runs]
+        dev = [(kv.to(cuda), v.to(cuda)) for kv, v in cpu]
+        windows_cpu, windows_dev = (t(k1), t(k2)), (t(k1).to(cuda), t(k2).to(cuda))
+        lows, highs = lsm_lookup.bounds_runs_plain([kv for kv, _ in cpu], *windows_cpu)
+        total = (highs - lows).clamp(min=0).sum(0)
+        for m, r in plans:
+            for name, call in (("count", lambda rs, w: queries.count_runs(rs, *w, m)),
+                               ("range", lambda rs, w: queries.range_runs(rs, *w, m, r))):
+                before = kernel.launches
+                got = call(dev, windows_dev)
+                assert kernel.launches == before + 1, (c, m, name)
+                exp = call(cpu, windows_cpu)
+                for g, e in zip(got, exp):
+                    assert g.is_cuda and g.dtype == e.dtype and g.shape == e.shape
+                    eq(g.cpu(), e)
+                if name == "range" and nq:
+                    seen["cut"] |= bool((total > m).any())
+                    seen["overflow"] |= bool((exp[2] > r).any())
+    assert seen == {"cut": True, "overflow": True}
+
+
+@pytest.mark.cuda
+def test_cuda_window_select_counters(cuda):
+    """The tracing counters of one count call on the card: the windows the
+    kernel answered, the slots of the plan, and the candidates it holds."""
+    from repro_torch import obs
+    from repro_torch.core import queries
+
+    rng = np.random.default_rng(3)
+    runs = [sorted_run(rng, n, 500, placebo_tail=n // 4) for n in (64, 0, 256, 1024)]
+    k1 = rng.integers(0, 500, 700).astype(np.int32)
+    k2 = (k1 + 60).astype(np.int32)
+    dev = [(t(kv).to(cuda), t(v).to(cuda)) for kv, v in runs]
+    lows, highs = lsm_lookup.bounds_runs_plain([t(kv) for kv, _ in runs], t(k1), t(k2))
+    obs.reset()
+    obs.enable(True)
+    try:
+        queries.count_runs(dev, t(k1).to(cuda), t(k2).to(cuda), 48)
+        got = obs.counters()
+    finally:
+        obs.enable(False)
+        obs.reset()
+    assert got["queries.window_kernel"] == 700 and got["queries.tile_slots"] == 700 * 48
+    assert got["queries.candidates"] == int((highs - lows).clamp(min=0).sum(0).clamp(max=48).sum())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", SORT_NS + [1 << 16, 5 << 12])
 def test_cuda_sort_matches_plain(cuda, n):
