@@ -47,10 +47,14 @@ class ControlDictionary(DenseDictionary):
 
 
 def run_one(cell: dict, seed: int, seconds: float, devices, *, control=None, fault=None, log=lambda m: None):
-    """One run of `cell` with the system replaced -> (correct, checks, run)."""
+    """One run of `cell` with the system replaced -> (correct, checks, run).
+    The control is built by the cell's system module's `control(config,
+    devices, name)` where it has one, else it is a ControlDictionary."""
     factory = None
     if control is not None:
-        factory = lambda cfg, devs: ControlDictionary(cfg, devs, control)  # noqa: E731
+        system = harness.load_module("systems", cell["config"]["system"], cell.get("roots", (harness.BENCH,)))
+        make = getattr(system, "control", ControlDictionary)
+        factory = lambda cfg, devs: make(cfg, devs, control)  # noqa: E731
     driver = harness.driver(cell)
     with planted(fault) if fault else contextlib.nullcontext():
         run = driver.run_cell(cell, devices=devices, seed=seed, seconds=seconds, trace=False,

@@ -19,6 +19,9 @@ The check's sample of the window's answers is a reservoir of `check_rounds`
 rounds drawn from the seed (uniform over the rounds the window ran), copied
 into buffers made in set-up, plus the last round's.
 
+A traced run profiles the window through progtrace.Tracer, which turns the
+program's own spans and counters on around it in a cell that reads them.
+
 After the window: the peak memory is read (above what the benchmark held
 before the system was made: the generator's key table); every live key, the
 most recently deleted keys and some never-inserted keys are read back
@@ -36,7 +39,7 @@ import time
 
 import torch
 
-from lsmbench import devtrace, harness, roofline
+from lsmbench import devtrace, harness, progtrace, roofline
 from lsmbench.reference.dense import DenseDictionary
 
 QUERY_OPS = ("lookup", "count", "range")
@@ -47,7 +50,8 @@ READBACK_CHUNK = 1 << 24   # keys a read-back lookup call sends
 class Run:
     """What a run measured; the metric readers read it. Every driver's run
     has `attempted`, `failed`, `memory_peak` (bytes), `setup_s`, `window_s`,
-    `trace` (devtrace.summarize's, or None) and `summary()`."""
+    `trace` (devtrace.summarize's, or None), `program` and `counters`
+    (progtrace.Tracer's, or None) and `summary()`."""
 
     def __init__(self, traffic: dict, devices):
         self.traffic = traffic
@@ -62,6 +66,8 @@ class Run:
         self.bytes = {"update": 0, "lookup": 0, "scan": 0}
         self.memory_peak = 0
         self.trace = None
+        self.program = None
+        self.counters = None
         self.failed = 0
         self.checks = {}
         self.checked = {}
@@ -79,6 +85,33 @@ class Run:
 def _rounds(traffic: dict):
     ops = traffic["round"]
     return ops, not any(op["op"] == "update" for op in ops)
+
+
+def calls(traffic: dict) -> set:
+    """The kinds of call a run of this mix sends the system: its rounds',
+    the set-up's updates and the read-back's lookups."""
+    return {"update", "lookup"} | {op["op"] for op in traffic["round"]}
+
+
+def tiny(cell: dict) -> dict:
+    """The cell's mix at the size of the CPU tests, in place (its config
+    already cut to a 16-bit key space, b = 64 and 1024 live keys): 30 set-up
+    update calls of at most 4 batches, so a cleanup comes on the way as at
+    full size and a call of several batches still splits; lookups of 512
+    keys; 64 windows of 256 keys under a plan small enough that some windows
+    overflow, so `ok` is checked both ways."""
+    tr = cell["traffic"]
+    tr["update_batches"] = min(tr["update_batches"], 4)
+    tr["setup"]["update_calls"] = 30
+    tr["check_rounds"] = min(tr["check_rounds"], 4)
+    for op in tr["round"]:
+        if op["op"] == "lookup":
+            op["keys"] = 512
+        if op["op"] in ("count", "range"):
+            op.update(windows=64, width=256)
+    if "plan" in tr:
+        tr["plan"] = {"max_candidates": 24, "max_results": 12}
+    return cell
 
 
 class Client:
@@ -217,11 +250,9 @@ def run_cell(cell: dict, *, devices, seed: int, seconds: float, trace: bool,
     sampler = random.Random(harness.mix(seed, "sample"))
     oks = []           # (round, call index, ok) of every count and range call
     last = None
-    prof = None
-    if trace:
-        from torch.profiler import ProfilerActivity, profile
-        prof = profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else []))
-        prof.start()
+    tracer = progtrace.Tracer(system, devices, cell.get("program_trace", False)) if trace else None
+    if tracer:
+        tracer.start()
     rounds = 0
     run.setup_s = time.perf_counter() - t_start
     t_window = time.perf_counter()
@@ -256,18 +287,15 @@ def run_cell(cell: dict, *, devices, seed: int, seconds: float, trace: bool,
             last = (rounds, outs)
             rounds += 1
     run.window_s = time.perf_counter() - t_window
-    if prof is not None:
-        prof.stop()
+    if tracer:
+        tracer.stop()
     kept = {r: reservoir[j] for j, r in enumerate(slot_round) if r >= 0}
     if slots:
         kept[last[0]] = last[1]
     del last
     run.memory_peak = max((torch.cuda.max_memory_allocated(d) - base for d, base in held.items()), default=0)
-    if prof is not None:
-        t0 = time.perf_counter()
-        run.trace = devtrace.summarize(*devtrace.kineto_events(prof))
-        del prof
-        log(f"trace summarised in {time.perf_counter() - t0:.3f} s: {run.trace['ops']} device operations")
+    if tracer:
+        tracer.keep(run, log)
     run.rounds = rounds
 
     # -- read back every acknowledged update, then free the system -----------

@@ -15,6 +15,11 @@ edits none:
 * `metrics/<metric>.py`: one metric's reader, a `read(run)` function that
   returns a number, or None where the run has nothing for it to read.
 
+A per-layer metric whose `source` is `program_span` or `program_counter`
+reads the program's own spans or counters; a cell that reports one has
+`program_trace` set, and only its traced runs turn them on
+(progtrace.Tracer).
+
 Every lookup searches the cell's `roots` in order (by default this folder
 alone), so a test can add a part in a folder of its own.
 """
@@ -27,6 +32,7 @@ import json
 from pathlib import Path
 
 BENCH = Path(__file__).resolve().parent
+PROGRAM_SOURCES = ("program_span", "program_counter")
 
 
 def mix(*parts) -> int:
@@ -68,11 +74,13 @@ def load_metric(name: str, roots=(BENCH,)):
 
 
 def load_cell(bench: dict, name: str, roots=(BENCH,)) -> dict:
-    """{"name", "chips", "config", "traffic", "roots"} of a cell of BENCHMARK.json."""
+    """{"name", "chips", "config", "traffic", "roots", "program_trace"} of a
+    cell of BENCHMARK.json."""
     spec = {w["name"]: w for w in bench["workloads"]}[name]
     return {"name": name, "chips": spec["chips"], "roots": tuple(roots),
             "config": load_json("configs", spec["config"], roots),
-            "traffic": load_json("traffic", spec["traffic"], roots)}
+            "traffic": load_json("traffic", spec["traffic"], roots),
+            "program_trace": any(m["source"] in PROGRAM_SOURCES for m in cell_metrics(bench, name, True))}
 
 
 def driver(cell: dict):

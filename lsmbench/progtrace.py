@@ -21,12 +21,20 @@ goes to the innermost program span that contains the launch time of the
 operation that ends the gap, so only host times are compared with host
 times. A gap that ends at the call's end (its synchronise), or whose next
 operation was launched outside every program span, goes to `other`.
+
+`Tracer` profiles a driver's measured window in a traced run (every driver
+uses it): it keeps devtrace's summary on the run as `run.trace`, and in a
+cell that reports a metric read from the program's spans or counters it
+turns them on around the window and keeps this module's summary as
+`run.program` and the counters as `run.counters`. Untraced runs never turn
+them on.
 """
 
 from __future__ import annotations
 
 import bisect
 import statistics
+import time
 
 from lsmbench import devtrace
 
@@ -34,6 +42,49 @@ PROGRAM = "repro_torch."
 CALLS = ("update", "lookup", "count", "range")
 OTHER = "other"
 LAYERS = {"facade": ("api.",), "core": ("lsm.", "ops.", "cascade.", "cleanup")}
+
+
+class Tracer:
+    """The profiler around a measured window. With `program` (the cell's
+    `program_trace`, harness.load_cell) the system's own spans and counters
+    go on just before the profiler starts and off just after it stops,
+    through the system's `program_trace(on)`; a system without that method
+    has none, and its run keeps no program summary."""
+
+    def __init__(self, system, devices, program: bool):
+        from torch.profiler import ProfilerActivity, profile
+
+        cuda = any(d.type == "cuda" for d in devices)
+        self.prof = profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else []))
+        self.switch = getattr(system, "program_trace", None) if program else None
+        self.counters = None
+
+    def start(self) -> None:
+        if self.switch:
+            self.switch(True)
+        self.prof.start()
+
+    def stop(self) -> None:
+        self.prof.stop()
+        if self.switch:
+            self.counters = self.switch(False)
+
+    def keep(self, run, log=lambda msg: None) -> None:
+        """Summarise the stopped window onto `run` (`trace`; `program` and
+        `counters` where the program was traced), then drop the profiler."""
+        t0 = time.perf_counter()
+        run.trace = devtrace.summarize(*devtrace.kineto_events(self.prof))
+        if self.switch:
+            run.program = summarize(*kineto_events(self.prof))
+            run.counters = self.counters
+        self.prof = None
+        log(f"trace summarised in {time.perf_counter() - t0:.3f} s: {run.trace['ops']} device operations")
+
+
+def read(run, name: str):
+    """The per-layer metric `name` of `metrics`, or None where the run kept
+    no program summary."""
+    return None if run.program is None else metrics(run.program, run.counters)[name]
 
 
 def kineto_events(prof):

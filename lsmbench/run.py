@@ -10,7 +10,9 @@ reader. It runs the cell on as many cards as the cell asks for and prints one
 JSON object as the last line of standard output: `correct`, `attempted`, `failed`, `metrics` (with `--trace 0` the
 cell's end-to-end metrics, with `--trace 1` its per-layer metrics), `device`,
 with `--trace 1` a `breakdown`, and last `checks`, each number compared with
-its limit. The same numbers end standard error. Without a CUDA device, or
+its limit. The same numbers end standard error; before them, in a traced
+run that turned the program's spans on, a line per program span and the
+idle gaps inside calls by span (lsmbench/progtrace.py). Without a CUDA device, or
 with fewer than the cell asks for, it exits 3 and prints no result; if `jax`,
 `jaxlib`, `flax` or the JAX package `repro` is loaded once the window has
 closed, it exits 4 and prints no result.
@@ -122,6 +124,12 @@ def main(argv=None) -> int:
     result["checks"] = checks
 
     log(f"{args.workload} seed {args.seed}: {run.summary()}; card {power_limit()}")
+    if run.program is not None:
+        from lsmbench import progtrace
+
+        for line in progtrace.lines(run.program):
+            log(line)
+        log(f"program gaps in calls by span: {run.program['program_gaps']}")
     for m in harness.cell_metrics(bench, args.workload, False):
         log(f"  {m['name']} {harness.load_metric(m['name'])(run)} {m['unit']}")
     for name, c in checks.items():

@@ -13,11 +13,20 @@ write buffer's lanes): a call of n lanes pushes the oldest b of the buffer
 through the cascade each time more than b are pending, so it makes
 max(0, ceil((pending + n) / b) - 1) carries, and carry k of them lands in
 the lowest level that is empty in r + k.
+
+`FAULTS` names the faults (lsmbench/faults.py) that can be planted in this
+system, each with the kind of call whose answers it spoils; the CPU tests
+plant each in every cell that sends such a call. `program_trace` turns the
+port's own spans and counters (`repro_torch.obs`) on and off around a traced
+window (lsmbench/progtrace.py's `Tracer`).
 """
 
 from __future__ import annotations
 
 from lsmbench import roofline
+
+FAULTS = {"unchanged": "update", "half_batch": "update", "lookup_altered": "lookup", "count_altered": "count",
+          "range_altered": "range"}
 
 
 class LSMFacade:
@@ -67,6 +76,18 @@ class LSMFacade:
         resident = self.d.state.r * self.batch_size + self.d.pending()
         self.d = self.d.cleanup()
         return roofline.cleanup_bytes(resident, survivors)
+
+    def program_trace(self, on: bool):
+        """On: forget the port's counters and turn its spans and counters on.
+        Off: turn them off and return the counters (`obs.counters()`)."""
+        from repro_torch import obs
+
+        if on:
+            obs.reset()
+            obs.enable(True)
+            return None
+        obs.enable(False)
+        return obs.counters()
 
     def lookup(self, keys):
         return self.d.lookup(keys)

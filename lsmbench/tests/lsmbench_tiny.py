@@ -1,6 +1,7 @@
 """Shared by the benchmark's CPU tests: the cells of BENCHMARK.json at a size
 the CPU runs in well under a second (a 16-bit key space, b = 64, 1024 live
-keys), and the path set-up that `lsmbench/run.py` does."""
+keys; each driver cuts its own mix), and the path set-up that
+`lsmbench/run.py` does."""
 
 import json
 import sys
@@ -19,23 +20,13 @@ CELLS = [w["name"] for w in BENCH["workloads"]]
 
 def tiny(name: str, roots=(harness.BENCH,), traffic: str | None = None) -> dict:
     """The cell at the tiny size, its parts found in `roots`; with `traffic`,
-    under that mix instead of its own."""
+    under that mix instead of its own. The config is cut here; the mix by
+    its driver's `tiny(cell)`."""
     cell = harness.load_cell(BENCH, name, roots)
     if traffic:
         cell["traffic"] = harness.load_json("traffic", traffic, roots)
-    cfg, tr = cell["config"], cell["traffic"]
-    cfg.update(key_bits=16, batch_size=64, capacity=64 * 32, live_keys=1024)
-    tr["setup"]["update_calls"] = 30   # a cleanup on the way, as at full size
-    tr["check_rounds"] = min(tr["check_rounds"], 4)
-    for op in tr["round"]:
-        if op["op"] == "lookup":
-            op["keys"] = 512
-        if op["op"] in ("count", "range"):
-            op.update(windows=64, width=256)
-    if "plan" in tr:
-        # Small enough that some windows overflow, so `ok` is checked both ways.
-        tr["plan"] = {"max_candidates": 24, "max_results": 12}
-    return cell
+    cell["config"].update(key_bits=16, batch_size=64, capacity=64 * 32, live_keys=1024)
+    return harness.driver(cell).tiny(cell)
 
 
 def run(cell: dict, seconds: float = 0.3, seed: int = 2**31 + 123, device: str = "cpu", **kw):

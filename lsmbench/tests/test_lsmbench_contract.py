@@ -119,6 +119,117 @@ def test_a_new_mix_generator_system_and_metric_are_found_by_name(tmp_path):
         harness.load_metric("no_such_metric", roots)
 
 
+TOY_DRIVER = '''
+"""A toy driver: a bulk build, a fixed count (`calls`) of update calls,
+then every live key read back and judged against the reference."""
+import torch
+
+from lsmbench import harness, progtrace
+from lsmbench.reference.dense import DenseDictionary
+
+
+class Run:
+    def __init__(self):
+        self.attempted = self.failed = self.memory_peak = self.wrong = 0
+        self.setup_s = self.window_s = 0.0
+        self.trace = self.program = self.counters = None
+
+    def summary(self):
+        return f"{self.attempted} lanes, {self.wrong} wrong"
+
+
+def calls(traffic):
+    return {"update", "lookup"}
+
+
+def tiny(cell):
+    cell["traffic"]["calls"] = 3
+    return cell
+
+
+def run_cell(cell, *, devices, seed, seconds, trace, system_factory=None, t_start=None, log=lambda m: None):
+    devices = [torch.device(d) for d in devices]
+    cfg, tr = cell["config"], cell["traffic"]
+    gen = harness.load_module("generators", tr["generator"], cell["roots"])
+    system = (system_factory or harness.load_module("systems", cfg["system"], cell["roots"]).make)(cfg, devices)
+    stream, run = gen.make(cfg, tr, seed, devices[0]), Run()
+    system.bulk_build(*stream.bulk())
+    tracer = progtrace.Tracer(system, devices, cell["program_trace"]) if trace else None
+    if tracer:
+        tracer.start()
+    with torch.profiler.record_function("lsmbench.window"):
+        for _ in range(tr["calls"]):
+            batch = stream.update()
+            with torch.profiler.record_function("lsmbench.update"):
+                if not system.fits(batch.keys.shape[0]):
+                    system.cleanup(stream.live)
+                stream.commit(batch)
+                system.update(batch.keys, batch.values, batch.is_delete)
+            run.attempted += batch.keys.shape[0]
+    if tracer:
+        tracer.stop()
+        tracer.keep(run)
+    found, values = system.lookup(stream.live_keys())
+    ref, replay = DenseDictionary(cfg["key_bits"], devices[0]), gen.make(cfg, tr, seed, devices[0])
+    ref.bulk_build(*replay.bulk())
+    for _ in range(tr["calls"]):
+        batch = replay.update()
+        replay.commit(batch)
+        ref.update(batch.keys, batch.values, batch.is_delete)
+    exp_found, exp_values = ref.lookup(replay.live_keys())
+    run.wrong = int((found != exp_found).sum()) + int((values != exp_values).sum())
+    return run
+
+
+def verdict(run):
+    return run.wrong == 0, {"readback_wrong": {"value": run.wrong, "limit": 0}}
+'''
+
+
+def test_a_new_driver_is_found_cut_run_traced_and_judged(tmp_path):
+    """A second driver and a mix that names it, in a folder of their own:
+    the cell is found, cut by the driver's own `tiny`, run traced through
+    progtrace.Tracer with the program's spans on (the cell reports metrics
+    of them), and judged by the driver's `verdict`; with a fault planted, and
+    with the control its own system module builds, it comes out not
+    correct."""
+    from lsmbench import control
+    from lsmbench.faults import planted
+
+    for kind in ("drivers", "traffic", "systems", "configs"):
+        (tmp_path / kind).mkdir()
+    (tmp_path / "drivers" / "toy.py").write_text(TOY_DRIVER)
+    mix = harness.load_json("traffic", "update")
+    mix["driver"] = "toy"
+    (tmp_path / "traffic" / "toy-updates.json").write_text(json.dumps(mix))
+    # A system module of its own, with its own control.
+    (tmp_path / "systems" / "toy_system.py").write_text(textwrap.dedent("""
+        from lsmbench import harness
+        from lsmbench.control import ControlDictionary
+        base = harness.load_module("systems", "lsm_facade")
+        FAULTS, make, BUILT = base.FAULTS, base.make, []
+
+        def control(config, devices, name):
+            BUILT.append(name)
+            return ControlDictionary(config, devices, name)
+    """))
+    config = harness.load_json("configs", "lsm-n27-b22")
+    config["system"] = "toy_system"
+    (tmp_path / "configs" / "lsm-n27-b22.json").write_text(json.dumps(config))
+    roots = (tmp_path, harness.BENCH)
+    cell = tiny("lsm-n27-b22.update", roots=roots, traffic="toy-updates")
+    assert cell["traffic"]["calls"] == 3 and cell["program_trace"]
+    r, correct, checks = run(cell, seed=77, trace=True)
+    assert correct and checks == {"readback_wrong": {"value": 0, "limit": 0}}
+    assert r.attempted == 3 * 64 and r.trace["groups"]["update"]["calls"] == 3
+    assert harness.load_metric("host_syncs_per_call.update")(r) == 0
+    with planted("unchanged"):
+        r, correct, checks = run(cell, seed=77)
+    assert not correct and checks["readback_wrong"]["value"] > 0
+    correct, checks, _ = control.run_one(cell, 77, 0.2, ["cpu"], control="stale_overwrite")
+    assert not correct and harness.load_module("systems", "toy_system", roots).BUILT == ["stale_overwrite"]
+
+
 def test_forbidden_modules_compare_whole_top_level_names(monkeypatch):
     sys.path.insert(0, str(ROOT / "lsmbench"))
     try:

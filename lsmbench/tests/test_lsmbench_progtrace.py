@@ -140,3 +140,73 @@ def test_the_adapters_carries_equal_the_programs_counters():
     carries = {k: v for k, v in counters.items() if k.startswith("cascade.carries.")}
     assert carries == {f"cascade.carries.L{j}": n for j, n in collections.Counter(levels).items()}
     assert counters["host_syncs"] == 3 * len(cleanups)
+
+
+PROGRAM_METRICS = ("idle_share.update.facade", "idle_share.update.core", "sort_share.update",
+                   "host_syncs_per_call.update")
+
+
+def watched(calls):
+    """The LSM adapter, noting at every call whether the program's tracing is on."""
+    base = harness.load_module("systems", "lsm_facade")
+
+    class Watched(base.LSMFacade):
+        pass
+
+    for name in ("update", "lookup", "count", "range"):
+        def call(self, *args, _name=name):
+            calls.append((_name, obs.enabled()))
+            return getattr(base.LSMFacade, _name)(self, *args)
+        setattr(Watched, name, call)
+    return Watched
+
+
+def test_a_traced_run_turns_the_program_on_for_the_window_alone():
+    """A tiny b22 update cell, traced: the program's spans and counters are on
+    in the window's calls and in no other; the run keeps progtrace's summary
+    and the counters, and the readers give numbers. sort_share.update has no
+    device time to read on the CPU."""
+    calls = []
+    cell = tiny("lsm-n27-b22.update")
+    assert cell["program_trace"]
+    r, correct, checks = run(cell, seconds=0.5, trace=True, system_factory=watched(calls))
+    assert correct, checks
+    updates = [on for name, on in calls if name == "update"]
+    window = len(r.latency_s["update"])
+    assert updates == [False] * (len(updates) - window) + [True] * window and window > 1
+    assert not any(on for name, on in calls if name == "lookup") and not obs.enabled()
+    assert r.program["calls"]["update"]["calls"] == window
+    assert r.counters.get("host_syncs", 0) == 3 * r.cleanups
+    got = {name: harness.load_metric(name)(r) for name in PROGRAM_METRICS}
+    assert got["sort_share.update"] is None
+    assert got["host_syncs_per_call.update"] == 3 * r.cleanups / window
+    assert got["idle_share.update.facade"] >= 0 and got["idle_share.update.core"] >= 0
+    idle = harness.load_metric("idle_share.update")(r)
+    assert got["idle_share.update.facade"] + got["idle_share.update.core"] <= idle + 1e-9
+
+
+@pytest.mark.parametrize("cell,trace", [("lsm-n27-b22.update", False), ("lsm-n27-b16.scan", True)])
+def test_the_program_stays_off_untraced_and_where_no_metric_reads_it(cell, trace):
+    """An untraced run, and a traced run of a cell that reports no metric of
+    the program's spans or counters, never turn them on, keep no program
+    summary, and their readers give nothing."""
+    calls = []
+    c = tiny(cell)
+    r, correct, checks = run(c, seconds=0.2, trace=trace, system_factory=watched(calls))
+    assert correct, checks
+    assert calls and not any(on for _, on in calls)
+    assert (r.trace is not None) == trace and r.program is None and r.counters is None
+    assert c["program_trace"] == (cell == "lsm-n27-b22.update")
+    assert all(harness.load_metric(name)(r) is None for name in PROGRAM_METRICS)
+
+
+def test_the_control_has_no_program_to_trace():
+    """The control (the reference's table) has no `program_trace`: a traced
+    run of it keeps the device trace and no program summary."""
+    from lsmbench.control import ControlDictionary
+
+    cell = tiny("lsm-n27-b22.update")
+    r = harness.driver(cell).run_cell(cell, devices=["cpu"], seed=5, seconds=0.2, trace=True,
+                                      system_factory=lambda cfg, devs: ControlDictionary(cfg, devs, "stale_overwrite"))
+    assert r.trace["groups"]["update"]["calls"] > 0 and r.program is None
+    assert all(harness.load_metric(name)(r) is None for name in PROGRAM_METRICS)
